@@ -6,23 +6,36 @@
 Phases, one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
-2. build: compiles every CUDA kernel of the main path (one ``nvcc`` per
-   source, all started together);
-3. kernel: each kernel against its plain PyTorch version on the card,
-   bitwise, at the shapes the main path gives it (tf-cnn, M = 384), with
-   its time, its plain version's time and its bound;
-4. main path: ``run_many`` on tf-cnn at the paper's defaults, timeout off
+2. build: compiles every CUDA kernel (one ``nvcc`` per source, all
+   started together);
+3. kernel: the select_step kernel against its plain PyTorch version on
+   the card, bitwise, at the shapes the main path gives it (tf-cnn, M =
+   384), with its time, its plain version's time and its bound;
+4. ops: the kernel entry point ``repro_torch.kernels`` — tree_predict and
+   gh_ei on the forests and root posterior of a real tf-cnn selection
+   step, flash_attention on a gemma2-9b prefill (S = T = 8192, local,
+   global, causal and non-causal, bf16 and f32), decode_attention on
+   gemma2-9b caches at B = 8 (global T = 8192 and local ring T = 4096,
+   each full and filling).
+   Each case is driven through the op once with the launch counts at 0,
+   then held against the plain version within its tolerance and timed
+   beside its plain version, its bound and, where one PyTorch call
+   computes the same function, that call (``library_ms``: SDPA, or a
+   compiled ``flex_attention`` for the softcapped and windowed prefills,
+   with its max abs error against the plain version);
+5. main path: ``run_many`` on tf-cnn at the paper's defaults, timeout off
    and on, through the kernel (launch counts read around the run), then
    the same runs through the plain path (``fused_selector="ref"``) — the
    pinned Outcome fields must be byte-identical;
-5. golden: ``run_many`` on ``synthetic_job(0)`` through the kernel must
+6. golden: ``run_many`` on ``synthetic_job(0)`` through the kernel must
    reproduce ``src/repro_torch/testdata/golden_outcomes.json``, written by
    the JAX package on the CPU;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result
-line.  Without a CUDA device it exits non-zero at once.  It imports
-neither jax nor the JAX package.
+line.
+Without a CUDA device it exits non-zero at once.  It imports neither jax
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +45,11 @@ import os
 # cuBLAS reads this when its handle is created; deterministic algorithms
 # need it set before the first CUDA product.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# The compiled flex_attention yardstick keeps its caches in the checkout.
+_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                      os.path.join(_BUILD, "inductor"))
+os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_BUILD, "triton"))
 
 import json  # noqa: E402
 import pathlib  # noqa: E402
@@ -43,9 +61,17 @@ import types  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "src" / "repro_torch" / "testdata" / "golden_outcomes.json"
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor fp32 op/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor fp32 op/s
+# and dense bf16 tensor-core op/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12        # dense, tensor cores
+
+
+def _fmt(key, v):
+    if isinstance(v, float) and key.endswith("ms"):
+        return f"{v:.5f}"
+    return json.dumps(v) if isinstance(v, str) else v
 
 
 def _line(phase: str, **kv) -> None:
@@ -277,7 +303,416 @@ def phase_kernel(device, tf_job):
 
 
 # --------------------------------------------------------------------------- #
-# Phase 4: the main path at full size
+# Phase 4: the kernel entry point (repro_torch.kernels) at full width
+# --------------------------------------------------------------------------- #
+# gemma2-9b's attention widths (src/repro/configs/gemma2_9b.py).
+GEMMA2 = dict(n_heads=16, n_kv_heads=8, head_dim=256, window=4096,
+              softcap=50.0, scale=256 ** -0.5)
+PREFILL_S = 8192          # twice the window: the local layers' window binds
+# bf16 (atol, rtol): kernel and plain version both widen to f32 and differ
+# by f32 summation order, then each rounds to bf16, so they may land one
+# bf16 ulp apart (at most 2^-7·|want|); the atol covers outputs near 0.
+BF16_TOL = (1e-3, 1e-2)
+DECODE_B = 8
+# (label, T, window, pos): the global layers' cache and the local layers'
+# ring, full (the ring has rolled over at pos 8191) and filling (the slots
+# past pos are empty: pos - slot < 0, where floor modulo matters).
+DECODE_CACHES = (("global cache T 8192, pos 8191", 8192, None, 8191),
+                 ("local ring T 4096, window 4096, pos 8191 (rollover)",
+                  4096, 4096, 8191),
+                 ("global cache T 8192, pos 5000 (filling)", 8192, None,
+                  5000),
+                 ("local ring T 4096, window 4096, pos 3000 (filling)",
+                  4096, 4096, 3000))
+
+
+class OpCase:
+    """One call of a ``repro_torch.kernels`` op: ``run`` goes through the
+    public op (the kernel, counted), ``plain`` through ``force="ref"``,
+    ``prep``/``launch`` give uncounted launches for timing, ``library`` is
+    one PyTorch call of the same function (or None)."""
+
+    def __init__(self, kernel, name, run, plain, prep, launch, compare,
+                 nbytes, ops, peak, library=None, reps=50, plain_reps=20,
+                 extra=None):
+        self.kernel, self.name = kernel, name
+        self.run, self.plain, self.prep, self.launch = run, plain, prep, launch
+        self.compare, self.library = compare, library
+        self.nbytes, self.ops, self.peak = nbytes, ops, peak
+        self.reps, self.plain_reps = reps, plain_reps
+        self.extra = extra or {}
+
+
+def _close(atol, rtol=0.0, exact=()):
+    """Compare outputs: ``|got - want| <= atol + rtol·|want|`` elementwise
+    (in float64), and bitwise for the output indices in ``exact``.
+    Returns (max abs error, list of failures)."""
+    def compare(got, want):
+        import torch
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        err, bad = 0.0, []
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                bad.append(f"out{i}: {a.dtype}{tuple(a.shape)} vs "
+                           f"{b.dtype}{tuple(b.shape)}")
+                continue
+            if i in exact:
+                n = int((a != b).sum())
+                if n:
+                    bad.append(f"out{i}: {n} of {a.numel()} differ")
+                continue
+            a64, b64 = a.double(), b.double()
+            diff = (a64 - b64).abs()
+            e = diff.nan_to_num(nan=float("inf")).max().item() if (
+                diff.numel()) else 0.0
+            err = max(err, e)
+            n = int((~(diff <= atol + rtol * b64.abs())).sum())
+            if n:
+                bad.append(f"out{i}: {n} of {a.numel()} outside atol {atol} "
+                           f"rtol {rtol}, max abs {e}")
+        return err, bad
+    return compare
+
+
+def _tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _per_forest(compare):
+    """A compare over lists of output tuples, one per forest."""
+    def run(got, want):
+        err, bad = 0.0, []
+        for i, (g, w) in enumerate(zip(got, want)):
+            e, b = compare(g, w)
+            err = max(err, e)
+            bad += [f"forest {i} {x}" for x in b]
+        return err, bad
+    return run
+
+
+def _tree_cases(points, forests, floor, label):
+    """tree_predict over ``points`` for each (feat, thr, leaf) forest."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.tree_predict import kernel as tp
+    n_trees, depth, _ = forests[0][0].shape
+    m_dim = points.shape[0]
+    # Inputs once and mu, sigma [M] f32, per forest.
+    nbytes = len(forests) * (_tensor_bytes(points, *forests[0]) + 8 * m_dim)
+    # One descent per tree (a compare and an index step a level), then the
+    # mean and the two-pass spread over the trees.
+    ops = len(forests) * m_dim * (n_trees * (2 * depth + 4) + 3)
+    inf_share = sum(float(torch.isinf(f[1]).float().mean()) for f in forests
+                    ) / len(forests)
+    # The JAX test's 1e-5 at tf-cnn's scale too: its leaves are costs
+    # under 1, and the kernel takes the two-pass spread as the plain
+    # version does.
+    return OpCase(
+        "tree_predict", label,
+        run=lambda: [kernels.tree_predict(points, *f, sigma_floor=floor)
+                     for f in forests],
+        plain=lambda: [kernels.tree_predict(points, *f, sigma_floor=floor,
+                                            force="ref") for f in forests],
+        prep=lambda: tp.prepare(points, *forests[0], sigma_floor=floor),
+        launch=tp.launch, compare=_per_forest(_close(1e-5)), nbytes=nbytes,
+        ops=ops, peak=FP32_OPS_PER_S,
+        extra=dict(forests=len(forests), M=m_dim, B=n_trees, D=depth,
+                   inf_thr_share=round(inf_share, 4)))
+
+
+def _gh_ei_case(label, args, kw):
+    """gh_ei on ``args``; ``kw`` may carry the censoring pre-pass."""
+    from repro_torch import kernels
+    from repro_torch.core import acquisition as acq
+    from repro_torch.kernels.gh_ei import kernel as ge
+    mu, sigma, u, ystar, t_max, beta, xi = args
+    cens = kw.get("cens")
+    # The kernel alone, for timing: on the pre-pass's output.
+    adj = ((mu, sigma) if cens is None else acq.censored_adjust(
+        mu, sigma, kw["y_cens"], cens, kw["cens_sigma_rel"]))
+    m_dim, k_gh = mu.shape[0], xi.shape[0]
+    return OpCase(
+        "gh_ei", label,
+        run=lambda: kernels.gh_ei(*args, **kw),
+        plain=lambda: kernels.gh_ei(*args, **kw, force="ref"),
+        prep=lambda: ge.prepare(*adj, *args[2:], conf=kw["conf"]),
+        launch=ge.launch, compare=_close(1e-5, exact=(1,)),
+        nbytes=4 * m_dim * (3 + 1 + k_gh) + m_dim + 4 * (k_gh + 3),
+        # ~40 per point for EI_c (two erf, an exp, three divisions), one
+        # compare, two per node.
+        ops=m_dim * (42 + 2 * k_gh), peak=FP32_OPS_PER_S,
+        extra=dict(M=m_dim, K=k_gh, censored=0 if cens is None
+                   else int(cens.sum())))
+
+
+def ops_cases(device, tf_job):
+    """Every kernel of ``repro_torch.kernels`` but select_step at the
+    shapes of this slice: tf-cnn's forests and root posterior, gemma2-9b's
+    attention."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import Settings
+    from repro_torch.core import acquisition as acq
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.select_step.ref import select_step_ref
+
+    cases = []
+    calls, _ = capture_select_step_calls(tf_job, Settings(timeout=True),
+                                         device)
+    (root_args, root_kw), (d1_args, _d1_kw) = calls[0], calls[1]
+    points = root_args[7]
+    floor = float(root_args[10])
+    forest = lambda args, i: tuple(a[i] for a in args[:3])
+    cases.append(_tree_cases(points, [forest(root_args, 0)], floor,
+                             "tf-cnn root forest"))
+    cases.append(_tree_cases(points, [forest(d1_args, i) for i in range(64)],
+                             floor, "tf-cnn depth-1 forests 0..63"))
+    g = torch.Generator(device=device).manual_seed(7)
+    n_trees, depth, width = root_args[0].shape[1:]
+    rand = (torch.randint(0, points.shape[1], (n_trees, depth, width),
+                          generator=g, device=device, dtype=torch.int32),
+            torch.rand((n_trees, depth, width), generator=g, device=device),
+            torch.randn((n_trees, 2 ** depth), generator=g, device=device))
+    rand[1][torch.rand(rand[1].shape, generator=g, device=device) < 0.2] = (
+        float("inf"))
+    cases.append(_tree_cases(points, [rand], 1e-6,
+                             "N(0,1)-leaf random forest"))
+
+    # gh_ei on the root posterior of the captured step: with the step's
+    # beta and censoring, and uncensored with beta at the median of
+    # mu + q·sigma, so that the budget flag splits the points.
+    y, beta, u, t_max = root_args[3], root_args[5], root_args[8], root_args[9]
+    xi = root_args[11]
+    cens = root_kw.get("cens")
+    mu, sigma = kernels.tree_predict(points, *forest(root_args, 0),
+                                     sigma_floor=floor)
+    # The step's y*: the root launch emits full rows, y* fourth.
+    ystar = select_step_ref(*root_args, **root_kw)[3][0]
+    conf = root_kw.get("conf", 0.99)
+    q = acq.normal_quantile(conf)
+    cases.append(_gh_ei_case("tf-cnn root posterior, step's beta, censored",
+                             (mu, sigma, u, ystar, t_max, beta[0], xi),
+                             dict(cens=cens[0], y_cens=y[0], conf=conf,
+                                  cens_sigma_rel=root_kw["cens_rel"])))
+    cases.append(_gh_ei_case("tf-cnn root posterior, median beta",
+                             (mu, sigma, u, ystar, t_max,
+                              (mu + q * sigma).median(), xi),
+                             dict(conf=conf)))
+
+    # flash_attention: a gemma2-9b prefill, four variants, two dtypes.
+    h, kh, d = GEMMA2["n_heads"], GEMMA2["n_kv_heads"], GEMMA2["head_dim"]
+    s = PREFILL_S
+    cap, win = GEMMA2["softcap"], GEMMA2["window"]
+    variants = [(f"local: causal, window {win}, softcap {cap:g}",
+                 dict(causal=True, window=win, softcap=cap)),
+                (f"global: causal, softcap {cap:g}",
+                 dict(causal=True, window=None, softcap=cap)),
+                ("causal", dict(causal=True, window=None, softcap=None)),
+                ("non-causal", dict(causal=False, window=None,
+                                    softcap=None))]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype, tol, peak in ((torch.bfloat16, BF16_TOL, BF16_OPS_PER_S),
+                             (torch.float32, (2e-5, 2e-5), FP32_OPS_PER_S)):
+        gq = torch.Generator(device=device).manual_seed(11)
+        q = torch.randn((1, h, s, d), generator=gq, device=device
+                        ).to(dtype)
+        k = torch.randn((1, kh, s, d), generator=gq, device=device
+                        ).to(dtype)
+        v = torch.randn((1, kh, s, d), generator=gq, device=device
+                        ).to(dtype)
+        for label, kw in variants:
+            kw = dict(kw, scale=GEMMA2["scale"])
+            pairs = _live_pairs(s, s, kw["causal"], kw["window"])
+            if kw["softcap"] is None and kw["window"] is None:
+                lib = (lambda q=q, k=k, v=v, kw=kw: sdpa(
+                    q, k, v, is_causal=kw["causal"], scale=kw["scale"],
+                    enable_gqa=True))
+            else:
+                lib = _flex_attention(q, k, v, **kw)
+            cases.append(OpCase(
+                "flash_attention", f"{label}, {str(dtype)[6:]}",
+                run=lambda q=q, k=k, v=v, kw=kw: kernels.flash_attention(
+                    q, k, v, **kw),
+                plain=lambda q=q, k=k, v=v, kw=kw: kernels.flash_attention(
+                    q, k, v, **kw, force="ref"),
+                prep=lambda q=q, k=k, v=v, kw=kw: fa.prepare(q, k, v, **kw),
+                launch=fa.launch, compare=_close(*tol),
+                nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
+                ops=4 * d * h * pairs, peak=peak, library=lib, reps=5,
+                plain_reps=3, extra=dict(B=1, H=h, KH=kh, S=s, T=s, D=d,
+                                         live_pairs_per_head=pairs)))
+
+    # decode_attention: gemma2-9b at B = 8, global cache and local ring.
+    b = DECODE_B
+    for dtype, tol, peak in ((torch.bfloat16, BF16_TOL, BF16_OPS_PER_S),
+                             (torch.float32, (2e-5, 2e-5), FP32_OPS_PER_S)):
+        for label, t, window, pos in DECODE_CACHES:
+            gk = torch.Generator(device=device).manual_seed(t)
+            q = torch.randn((b, h, d), generator=gk, device=device).to(dtype)
+            k = torch.randn((b, kh, t, d), generator=gk, device=device
+                            ).to(dtype)
+            v = torch.randn((b, kh, t, d), generator=gk, device=device
+                            ).to(dtype)
+            pos_t = torch.tensor(pos, dtype=torch.int32, device=device)
+            live_mask = _live_mask(t, pos, window)
+            live = int(live_mask.sum())
+            kw = dict(scale=GEMMA2["scale"], window=window)
+            # SDPA over the live slots (a masked slot gets weight 0, as the
+            # kernel's -0.7·f32max does); no mask when every slot is live.
+            mask = (None if live == t else
+                    torch.from_numpy(live_mask).to(device)[None, None, None])
+            lib = (lambda q=q, k=k, v=v, m=mask: sdpa(
+                q[:, :, None], k, v, attn_mask=m, scale=GEMMA2["scale"],
+                enable_gqa=True)[:, :, 0])
+            cases.append(OpCase(
+                "decode_attention", f"{label}, {str(dtype)[6:]}",
+                run=lambda q=q, k=k, v=v, p=pos_t, kw=kw:
+                    kernels.decode_attention(q, k, v, p, **kw),
+                plain=lambda q=q, k=k, v=v, p=pos_t, kw=kw:
+                    kernels.decode_attention(q, k, v, p, **kw, force="ref"),
+                prep=lambda q=q, k=k, v=v, p=pos_t, kw=kw: da.prepare(
+                    q, k, v, p, **kw),
+                launch=da.launch, compare=_close(*tol),
+                # q and o, and the K/V rows of the live slots only.
+                nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v) * live // t,
+                ops=4 * d * h * b * live, peak=peak, library=lib, reps=20,
+                plain_reps=5, extra=dict(B=b, H=h, KH=kh, T=t, D=d,
+                                         live_slots=live)))
+    return cases
+
+
+def _live_pairs(s, t, causal, window):
+    """(query, key) pairs that the mask keeps, per head."""
+    import numpy as np
+    qp = np.arange(s)[:, None]
+    kp = np.arange(t)[None, :]
+    ok = np.ones((s, t), bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    return int(ok.sum())
+
+
+def _live_mask(t, pos, window):
+    """The ring slots that hold a live key at ``pos`` (floor modulo)."""
+    import numpy as np
+    kpos = pos - np.mod(pos - np.arange(t), t)
+    ok = (kpos >= 0) & (kpos <= pos)
+    if window is not None:
+        ok &= kpos > pos - window
+    return ok
+
+
+def _flex_attention(q, k, v, *, causal, window, softcap, scale):
+    """One compiled ``flex_attention`` call of the same function: the
+    softcap as its score_mod (after the scale, before the mask), the causal
+    and window mask as its block mask.  The library yardstick only."""
+    import torch
+    from torch.nn.attention import flex_attention as fx
+
+    def mask_mod(b, h, qi, ki):
+        ok = ki >= 0
+        if causal:
+            ok = ok & (ki <= qi)
+        if window is not None:
+            ok = ok & (ki > qi - window)
+        return ok
+
+    def score_mod(sc, b, h, qi, ki):
+        return softcap * torch.tanh(sc / softcap)
+
+    block = fx.create_block_mask(mask_mod, None, None, q.shape[2],
+                                 k.shape[2], device=q.device)
+    flex = torch.compile(fx.flex_attention)
+    return lambda: flex(q, k, v, score_mod=None if softcap is None
+                        else score_mod, block_mask=block, scale=scale,
+                        enable_gqa=True)
+
+
+def _op_counters():
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.gh_ei.kernel import gh_ei_cuda
+    from repro_torch.kernels.tree_predict.kernel import tree_predict_cuda
+    return dict(tree_predict=tree_predict_cuda, gh_ei=gh_ei_cuda,
+                flash_attention=flash_attention_cuda,
+                decode_attention=decode_attention_cuda)
+
+
+def phase_ops(device, tf_job):
+    """Drive every case through ``repro_torch.kernels`` once with the launch
+    counts at 0 (the path), then hold each output against the plain
+    version and time the kernel, the plain version and the library call."""
+    import torch
+
+    t0 = time.perf_counter()
+    cases = ops_cases(device, tf_job)
+    torch.cuda.synchronize()
+    counters = _op_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs = [case.run() for case in cases]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _line("ops", drive="repro_torch.kernels", cases=len(cases),
+          launches=json.dumps(launches, separators=(",", ":")))
+    missing = [n for n, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the ops path: "
+                             f"{missing}")
+
+    rows, failures = [], []
+    for i, case in enumerate(cases):
+        got, outs[i] = outs[i], None
+        want = case.plain()
+        torch.cuda.synchronize()
+        err, bad = case.compare(got, want)
+        if case.kernel == "gh_ei":
+            case.extra["ok"] = int(got[1].sum())
+        del got, want
+        args, _out, keep = case.prep()
+        ms = _launch_ms(lambda: case.launch(args), n=case.reps,
+                        warmup=min(3, case.reps))
+        del _out, keep
+        plain_ms = _median_ms(case.plain, reps=case.plain_reps,
+                              warmup=1)
+        lib_ms = lib_err = None
+        if case.library is not None:
+            # Its max abs error against the plain version, reported only:
+            # SDPA and flex_attention round their bf16 probabilities.
+            lib_err = case.compare(case.library(), case.plain())[0]
+            lib_ms = _launch_ms(case.library, n=case.reps,
+                                warmup=min(3, case.reps))
+        torch.cuda.synchronize()
+        byte_ms = case.nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = case.ops / case.peak * 1e3
+        row = dict(kernel=case.kernel, case=case.name, max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library_err=lib_err,
+                   bound_ms=max(byte_ms, op_ms),
+                   bound_by="bytes" if byte_ms >= op_ms else "operations",
+                   bytes=case.nbytes, ops=case.ops,
+                   launches=launches[case.kernel], **case.extra)
+        rows.append(row)
+        _line("ops", **{k: _fmt(k, v) for k, v in row.items()},
+              within_tol=not bad)
+        for b_ in bad:
+            print(f"[ops]   {case.kernel} {case.name}: {b_}", flush=True)
+            failures.append(f"{case.kernel} {case.name}: {b_}")
+        torch.cuda.empty_cache()
+    _line("ops", phase_s=f"{time.perf_counter() - t0:.1f}")
+    if failures:
+        raise AssertionError(f"{len(failures)} op outputs differ from the "
+                             f"plain version: {failures[:3]}")
+    return rows, launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 5: the main path at full size
 # --------------------------------------------------------------------------- #
 def _pinned_json(outcomes):
     from repro_torch.obs.forensics import outcome_to_dict
@@ -354,7 +789,7 @@ def phase_main(device, tf_job, n_runs=1, budget_b=3.0):
 
 
 # --------------------------------------------------------------------------- #
-# Phase 5: the JAX package's golden outcomes
+# Phase 6: the JAX package's golden outcomes
 # --------------------------------------------------------------------------- #
 def phase_golden(device):
     from repro_torch.core import Settings, run_many
@@ -381,6 +816,41 @@ def phase_golden(device):
     _line("golden", phase_s=f"{time.perf_counter() - t0:.1f}")
 
 
+# Of each op's cases, the one that stands for it in the summary line (its
+# label's start and end), and the TPU kernel it replaces.
+OP_SUMMARY = {
+    "tree_predict": ("tf-cnn root forest", "",
+                     "src/repro/kernels/tree_predict/kernel.py:88"),
+    "gh_ei": ("tf-cnn root posterior, step's beta", "",
+              "src/repro/kernels/gh_ei/kernel.py:70"),
+    "flash_attention": ("global:", "bfloat16",
+                        "src/repro/kernels/flash_attention/kernel.py:111"),
+    "decode_attention": ("global cache", "bfloat16",
+                         "src/repro/kernels/decode_attention/kernel.py:88"),
+}
+
+
+def _op_summary(rows, launches):
+    out = []
+    for name, (start, end, replaces) in OP_SUMMARY.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        row = next(r for r in mine if r["case"].startswith(start)
+                   and r["case"].endswith(end))
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "case": row["case"],
+            "cases": [{k: r[k] for k in ("case", "max_abs_err", "ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}
+                      for r in mine]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -405,7 +875,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all()
-    _line("build", sources=",".join(logs), seconds=f"{time.perf_counter() - t0:.1f}")
+    _line("build", sources=",".join(logs),
+          seconds=f"{time.perf_counter() - t0:.1f}")
     for name, log in logs.items():
         for ln in log.splitlines():
             if "registers" in ln or "smem" in ln or "spill" in ln:
@@ -413,9 +884,9 @@ def main() -> int:
 
     tf_job = tensorflow_jobs(0)[0]
     rows, max_err = phase_kernel(device, tf_job)
+    op_rows, op_launches = phase_ops(device, tf_job)
     launches = phase_main(device, tf_job)
     phase_golden(device)
-
     # The depth-2 launch, the one that moves the most bytes, stands for the
     # kernel in the summary line.
     row = next(r for r in rows if r["case"].startswith("d2_")
@@ -428,7 +899,7 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": {"S": row["S"], "M": row["M"]},
-    }]
+    }] + _op_summary(op_rows, op_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

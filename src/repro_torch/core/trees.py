@@ -107,30 +107,41 @@ def _seq_sum_by_node(onehot: torch.Tensor, val: torch.Tensor
     return acc
 
 
+def _dot_lanes(rows: int, k: int, j: int) -> int:
+    """Running sums XLA's CPU backend interleaves over k in a ``[rows, K] x
+    [K, J]`` matrix product (measured for 24 <= K <= 512, 4 <= J <= 48)."""
+    if rows == 1:
+        return 1
+    if j <= 16:
+        return 4
+    if rows <= 50:
+        return 1
+    if j <= 24:
+        return 2 if k % 4 in (1, 2) else 4
+    return 2 if j <= 32 else 4
+
+
 def _xla_dot(a: torch.Tensor, b: torch.Tensor, rows: int) -> torch.Tensor:
     """``a @ b`` ([..., K] x [K, J]) in the summation order XLA's CPU
     backend gives the reference's split-search product, a ``[rows, K] x
-    [K, J]`` matrix product (measured for K <= 700):
-
-    * ``J >= 17`` and ``rows <= 50``: one running sum, k left to right;
-    * otherwise (``rows >= 2``): four interleaved running sums over k mod 4
-      (k below the last multiple of 4), combined as ``(s0 + s1) + (s2 +
-      s3)``, plus the remaining k summed left to right.
+    [K, J]`` matrix product: ``L = _dot_lanes(rows, K, J)`` interleaved
+    running sums over k mod ``L`` (k below the last multiple of ``L``),
+    combined pairwise (``s0 + s1``, or ``(s0 + s1) + (s2 + s3)``), plus the
+    remaining k summed left to right.  ``L = 1`` is one running sum, k left
+    to right.
 
     The products are exact here (``b`` is a 0/1 table), so the order alone
     decides the bits, and plain float32 adds give them on every device.
     """
-    k = a.shape[-1]
-    if rows == 1 or (b.shape[1] >= 17 and rows <= 50):
-        acc = a.new_zeros(a.shape[:-1] + (b.shape[1],))
-        for t in range(k):
-            acc = acc + a[..., t, None] * b[t]
-        return acc
-    main = k - k % 4
-    acc = a.new_zeros(a.shape[:-1] + (4, b.shape[1]))
-    for t in range(0, main, 4):
-        acc = acc + a[..., t:t + 4, None] * b[t:t + 4]
-    out = (acc[..., 0, :] + acc[..., 1, :]) + (acc[..., 2, :] + acc[..., 3, :])
+    k, j = a.shape[-1], b.shape[1]
+    lanes = _dot_lanes(rows, k, j)
+    main = k - k % lanes
+    acc = a.new_zeros(a.shape[:-1] + (lanes, j))
+    for t in range(0, main, lanes):
+        acc = acc + a[..., t:t + lanes, None] * b[t:t + lanes]
+    while acc.shape[-2] > 1:
+        acc = acc[..., 0::2, :] + acc[..., 1::2, :]
+    out = acc[..., 0, :]
     if main < k:
         tail = a[..., main, None] * b[main]
         for t in range(main + 1, k):

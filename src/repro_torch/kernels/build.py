@@ -23,7 +23,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parents[1] / "build" / "kernels"
 
-SOURCES = ("select_step",)
+SOURCES = ("select_step", "tree_predict", "gh_ei", "flash_attention",
+           "decode_attention")
 
 # -fmad=false: no product is contracted into an FMA; IEEE division and
 # square root; -ftz=true: float32 subnormals flush to zero, the arithmetic

@@ -1,0 +1,80 @@
+"""Wrapper of the CUDA decode-attention kernel
+(``csrc/decode_attention.cu``).
+
+:func:`prepare` checks the inputs and allocates the output, :func:`launch`
+launches once on prepared arguments, and :func:`decode_attention_cuda`
+does both and counts the launch in ``decode_attention_cuda.launches`` (and
+nowhere else).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import capi
+from repro_torch.kernels.flash_attention.kernel import DTYPES, check_heads
+
+__all__ = ["decode_attention_cuda", "launch", "prepare"]
+
+_OP = "decode_attention"
+# Outputs a block holds: G·D query-head values of one KV head.
+MAX_GROUP_WIDTH = 4096
+
+
+def _fn():
+    return capi.entry(_OP, "decode_attention_launch",
+                      [capi.P] * 4 + [capi.I] * 6
+                      + [capi.F, capi.I, capi.P, capi.I, capi.P])
+
+
+def prepare(q, k, v, pos, *, scale=None, window=None):
+    """Returns ``(args, out, keep)``: the C entry's arguments, the output
+    tensor and the tensors ``args`` points into.  ``pos`` is a Python int
+    (passed by value) or an integer tensor on the card (read there)."""
+    dev = capi.require_cuda(_OP, q)
+    b, h, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    capi.check(_OP, "q", q, DTYPES, (b, h, d), dev)
+    capi.check(_OP, "k", k, DTYPES, (b, kh, t, d), dev)
+    capi.check(_OP, "v", v, DTYPES, (b, kh, t, d), dev)
+    check_heads(_OP, q, k, v, h, kh, d)
+    if t < 1:
+        raise ValueError(f"{_OP}: the cache holds no slot")
+    if (h // kh) * d > MAX_GROUP_WIDTH:
+        raise ValueError(f"{_OP}: {h // kh} heads x {d} per KV head exceed "
+                         f"{MAX_GROUP_WIDTH} values")
+    if window is not None and window <= 0:
+        raise ValueError(f"{_OP}: window={window} must be positive")
+    pos_t = None
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1:
+            raise ValueError(f"{_OP}: pos must be a scalar")
+        pos_t = pos.to(device=dev, dtype=torch.int32).reshape(1)
+        pos_val = 0
+    else:
+        pos_val = int(pos)
+    scale = d ** -0.5 if scale is None else scale
+    o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, h, kh, t, d,
+            float(np.float32(scale)), 0 if window is None else int(window),
+            capi.ptr(pos_t), pos_val, capi.stream(dev))
+    return args, o, (q, k, v, pos_t)
+
+
+def launch(args) -> None:
+    """One launch on prepared arguments; does not count."""
+    capi.raise_on_error(_OP, _fn()(*args))
+
+
+def decode_attention_cuda(q, k, v, pos, *, scale=None, window=None):
+    """Decode attention on the card; the contract of
+    :func:`repro_torch.kernels.decode_attention.ref.decode_attention_ref`."""
+    args, out, _keep = prepare(q, k, v, pos, scale=scale, window=window)
+    launch(args)
+    decode_attention_cuda.launches += 1
+    return out
+
+
+decode_attention_cuda.launches = 0

@@ -1,0 +1,25 @@
+"""Dispatching entry of single-token attention over a ring KV cache."""
+
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import kernel as _kernel
+from repro_torch.kernels.decode_attention import ref as _ref
+from repro_torch.kernels.dispatch import resolve_mode
+
+__all__ = ["decode_attention"]
+
+
+def decode_attention(q, k, v, pos, *, scale=None, window=None, bk=1024,
+                     force: str = "auto"):
+    """q [B, H, D]; k, v [B, KH, T, D] ring caches; ``pos`` the scalar write
+    position (a Python int or an integer tensor) -> [B, H, D].
+
+    The kernel for CUDA tensors, the plain version for CPU tensors (see
+    ``kernels.dispatch``).  ``bk`` is the TPU kernel's key block, kept for
+    its signature; the CUDA kernel picks its own.
+    """
+    del bk
+    kw = dict(scale=scale, window=window)
+    if resolve_mode(force, q.device, op="decode_attention") == "ref":
+        return _ref.decode_attention_ref(q, k, v, pos, **kw)
+    return _kernel.decode_attention_cuda(q, k, v, pos, **kw)

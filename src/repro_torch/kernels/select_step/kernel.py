@@ -10,46 +10,25 @@ split a call, so that a benchmark can time launches alone.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from repro_torch.core.acquisition import normal_quantile
-from repro_torch.kernels import build
+from repro_torch.kernels import capi
 
 __all__ = ["launch", "prepare", "select_step_cuda"]
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
+_OP = "select_step"
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("select_step")
-    fn = lib.select_step_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([_P] * 13 + [_F, _F] + [_I] * 12 + [_P] * 11 + [_P])
-        fn.restype = _I
-    return lib
+def _fn():
+    return capi.entry(_OP, "select_step_launch",
+                      [capi.P] * 13 + [capi.F, capi.F] + [capi.I] * 12
+                      + [capi.P] * 11 + [capi.P])
 
 
 def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"select_step: {name} is on {t.device}, "
-                         f"expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"select_step: {name} has dtype {t.dtype}, "
-                        f"expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"select_step: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"select_step: {name} is not contiguous")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+    capi.check(_OP, name, t, dtype, shape, device)
 
 
 def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
@@ -68,9 +47,7 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
     if score_mode not in ("eic", "ratio"):
         raise ValueError(f"score_mode={score_mode!r}: expected 'eic' or "
                          "'ratio'")
-    dev = y.device
-    if dev.type != "cuda":
-        raise ValueError(f"select_step_cuda needs CUDA tensors, got {dev}")
+    dev = capi.require_cuda(_OP, y)
     s_dim, n_trees, depth, width = feat.shape
     n_leaves = leaf.shape[-1]
     m_dim, n_feat = points.shape
@@ -120,17 +97,17 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
             nodes = torch.empty((s_dim, k_gh), **f32)
         out = (sel, has, eic_sel, mu_sel, sig_sel)
     out += (nodes,) if want_nodes else ()
-    args = (_ptr(feat), _ptr(thr), _ptr(leaf), _ptr(y), _ptr(obs),
-            _ptr(cens), _ptr(beta), _ptr(bf), _ptr(points), _ptr(u),
-            _ptr(valid), _ptr(xi) if want_nodes else None, _ptr(scal),
+    inputs = (feat, thr, leaf, y, obs, cens, beta, bf, points, u, valid,
+              xi if want_nodes else None, scal)
+    outputs = (mu, sig, eic, ystar, cand, sel, has, nodes, eic_sel, mu_sel,
+               sig_sel)
+    args = (*map(capi.ptr, inputs),
             float(np.float32(normal_quantile(float(conf)))),
             float(np.float32(cens_rel)),
             s_dim, n_trees, depth, width, n_leaves, m_dim, n_feat, k_gh,
             int(score_mode == "ratio"), int(bool(use_budget)),
             int(bool(emit_full)), int(bool(want_nodes)),
-            _ptr(mu), _ptr(sig), _ptr(eic), _ptr(ystar), _ptr(cand),
-            _ptr(sel), _ptr(has), _ptr(nodes), _ptr(eic_sel), _ptr(mu_sel),
-            _ptr(sig_sel), torch.cuda.current_stream(dev).cuda_stream)
+            *map(capi.ptr, outputs), capi.stream(dev))
     return args, out, (feat, thr, leaf, y, obs, cens, beta, bf, points, u,
                        valid, xi, scal)
 
@@ -138,10 +115,7 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
 def launch(args) -> None:
     """One launch of the kernel on prepared arguments; raises if the launch
     reports a CUDA error.  Does not count (see :func:`select_step_cuda`)."""
-    err = _lib().select_step_launch(*args)
-    if err != 0:
-        raise RuntimeError(f"select_step kernel launch failed: CUDA error "
-                           f"{err}")
+    capi.raise_on_error(_OP, _fn()(*args))
 
 
 def select_step_cuda(feat, thr, leaf, y, obs, beta, bf, points, u, t_max,
