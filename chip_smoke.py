@@ -30,6 +30,18 @@ Phases, one line each with its times, then two JSON lines:
 6. golden: ``run_many`` on ``synthetic_job(0)`` through the kernel must
    reproduce ``src/repro_torch/testdata/golden_outcomes.json``, written by
    the JAX package on the CPU;
+7. model: zamba2-7b served at full width and depth (81 layers, d_model
+   3584, 6.75 B float32 parameters drawn on the card from a seeded
+   generator) through ``repro_torch.launch.serve.generate``: B = 4 prompts
+   of 1000 tokens from ``make_batch(seed=0)``, 32 tokens each, with the
+   launch counts at 0 before and read after (ssm_scan 81, flash_attention
+   13, decode_attention 13 x 31), with prefill seconds and decode
+   tokens/s.  Then layer 0's and layer 80's ssm_scan (float32, and k/q/v
+   cast to bf16), site 0's flash_attention and the last decode_attention
+   call, each held against its plain version on the arguments captured
+   from that run and timed beside it, its bound and (attention) SDPA.
+   Last, zamba2-smoke through the kernels, teacher-forced, against the
+   JAX package's logits (``golden_zamba.json``, atol 2e-4);
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result
@@ -51,6 +63,7 @@ os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
                       os.path.join(_BUILD, "inductor"))
 os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_BUILD, "triton"))
 
+import gc  # noqa: E402
 import json  # noqa: E402
 import pathlib  # noqa: E402
 import statistics  # noqa: E402
@@ -61,6 +74,7 @@ import types  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "src" / "repro_torch" / "testdata" / "golden_outcomes.json"
+GOLDEN_ZAMBA = ROOT / "src" / "repro_torch" / "testdata" / "golden_zamba.json"
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor fp32 op/s
 # and dense bf16 tensor-core op/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -816,6 +830,445 @@ def phase_golden(device):
     _line("golden", phase_s=f"{time.perf_counter() - t0:.1f}")
 
 
+# --------------------------------------------------------------------------- #
+# Phase 7: the Zamba2 serving path (ssm_scan, flash and decode attention)
+# --------------------------------------------------------------------------- #
+ZAMBA = dict(arch="zamba2-7b", batch=4, prompt=1000, gen=32)
+# Serving runs in phase model: the first with the launch counts, then
+# repeats for the spread of the rates.
+SERVE_RUNS = 3
+# ssm_scan against the plain version evaluated in float64 on the same
+# inputs: |kernel - exact| <= SSM_RTOL·|exact| + SSM_ATOL·max|exact|, per
+# output, in both input types (the kernel takes bf16 inputs exactly and
+# computes in float32).  The kernel's measured error is 1.4e-7 to 1.8e-7 of
+# max|exact| at layers 0 and 80 of zamba2-7b (PERF.md §6), so this
+# leaves a margin of about 5 and fails a decay or gate off by a part in
+# 1e5.  Against the plain float32 version, which loses digits of cum_i -
+# cum_j deep in the model, tests/test_kernels.py:173's atol 1e-4 / rtol
+# 5e-2 (bf16 5e-2) is reported, not held.
+SSM_RTOL, SSM_ATOL = 1e-5, 1e-6
+SSM_PLAIN_TOL = {"float32": (1e-4, 5e-2), "bfloat16": (5e-2, 5e-2)}
+
+
+def _scan_check(got, plain, exact, plain_tol):
+    """The kernel's (y, state) against ``exact``, the plain version in
+    float64.  Returns (max |kernel - exact|, failures, extra fields: the
+    error against the float32 plain version, the elements outside
+    ``plain_tol`` of it, and each output's error and largest
+    magnitude)."""
+    atol, rtol = plain_tol
+    err, bad = 0.0, []
+    extra = dict(err_vs_plain=0.0, outside_plain_tol=0)
+    for name, k_, p_, x_ in zip(("y", "state"), got, plain, exact):
+        k64, p64 = k_.double(), p_.double()
+        d = (k64 - x_).abs()
+        e = d.nan_to_num(nan=float("inf")).max().item()
+        top = x_.abs().max().item()
+        err = max(err, e)
+        extra[f"{name}_err"], extra[f"{name}_absmax"] = e, top
+        out = ~(d <= SSM_RTOL * x_.abs() + SSM_ATOL * top)
+        if out.any():
+            bad.append(f"{name}: {int(out.sum())} of {d.numel()} outside "
+                       f"rtol {SSM_RTOL} + atol {SSM_ATOL}·max of the plain "
+                       f"version in float64 (max err {e:.3g}, max {top:.3g})")
+        dp = (k64 - p64).abs()
+        extra["err_vs_plain"] = max(extra["err_vs_plain"], dp.max().item())
+        extra["outside_plain_tol"] += int((~(dp <= atol + rtol
+                                             * p64.abs())).sum())
+    return err, bad, extra
+
+
+def _profile(label, fn, wall_s):
+    """One call of ``fn`` under ``torch.profiler``, recording the card's
+    activity only: device busy seconds (the kernels' summed time), the
+    idle share against ``wall_s``, the median wall time of the same work
+    unprofiled, and the kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    self_us = lambda e: (getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0) or 0)
+    # Kernels only: "Command Buffer Full" marks the host waiting on a full
+    # queue.
+    rows = sorted(((e.key, self_us(e), e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and self_us(e) > 0
+                   and e.key != "Command Buffer Full"), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    _line("model", profile=label, wall_s=f"{wall_s:.4f}",
+          profiled_wall_s=f"{profiled_s:.4f}", device_busy_s=f"{busy:.4f}",
+          idle_share=f"{1 - busy / wall_s:.3f}" if busy else "not measured")
+    for name, us, calls in rows[:10]:
+        _line("model", profile=label, kernel=json.dumps(name[:70]),
+              device_ms=f"{us / 1e3:.3f}", calls=calls,
+              share=f"{us / 1e6 / busy:.3f}")
+
+
+def _unique_bytes(t):
+    """Bytes a tensor holds once, however its strides repeat them (a head
+    stride of 0 reads one row for every head)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def _ssm_work(args, kw, chunk):
+    """Bytes (inputs once, y and the state once) and float32 operations of
+    one scan from its shapes, by two algorithms.  The recurrence, step by
+    step: per row the decay, the outer product and the add over N·P, the
+    gated key and q·S (5·N·P + N), the first row of each (batch, head)
+    without the decay against a zero state.  The chunked form the kernel
+    runs: per causal pair of a chunk the q·k dot, the weight and its share
+    of the value product; per row the update, and the carry after the
+    first chunk or from a given initial state."""
+    k, v = args[0], args[1]
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    nbytes = sum(_unique_bytes(t) for t in args) + 4 * b * h * p * (l + n)
+    if kw.get("initial_state") is not None:
+        nbytes += 4 * b * h * n * p
+    zero = kw.get("initial_state") is None
+    recurrence = b * h * (l * (5 * n * p + n) - zero * 2 * n * p)
+    sizes = [min(chunk, l - c0) for c0 in range(0, l, chunk)]
+    pairs = sum(c * (c + 1) // 2 for c in sizes)
+    chunked = b * h * (pairs * (2 * n + 2 * p + 3) + l * (2 * n * p + 2 * p)
+                       + (l - zero * sizes[0]) * (2 * n * p + p))
+    return nbytes, recurrence, chunked
+
+
+class _HostClock:
+    """Where a serving run's host time goes: the process's CPU seconds
+    (all its threads) and the wall seconds of the block, the cyclic
+    garbage collector's collections and their seconds, the objects it
+    tracks at the start, and the machine's 1-minute load average."""
+
+    def __enter__(self):
+        self.gc_s, self.gc_n, self._t = 0.0, 0, 0.0
+        self.objects = len(gc.get_objects())
+        self.load = os.getloadavg()[0]
+        gc.callbacks.append(self._tick)
+        self.cpu0, self.wall0 = time.process_time(), time.perf_counter()
+        return self
+
+    def _tick(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.gc_s += time.perf_counter() - self._t
+            self.gc_n += 1
+
+    def __exit__(self, *exc):
+        self.cpu_s = time.process_time() - self.cpu0
+        self.wall_s = time.perf_counter() - self.wall0
+        gc.callbacks.remove(self._tick)
+
+    def fields(self):
+        return dict(host_cpu_s=f"{self.cpu_s:.3f}",
+                    host_wall_s=f"{self.wall_s:.3f}", loadavg=self.load,
+                    gc_tracked_objects=self.objects, gc_collections=self.gc_n,
+                    gc_s=f"{self.gc_s:.4f}")
+
+
+class _Capture:
+    """Stand-in for an op module's ``_kernel``: counts through the real
+    wrapper and keeps the arguments of the calls ``keep`` selects."""
+
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls, self.n = {}, 0
+
+    def __getattr__(self, attr):
+        real = getattr(self.module, attr)
+        if attr != self.name:
+            return real
+
+        def run(*args, **kw):
+            if self.keep(self.n):
+                self.calls[self.n] = (args, kw)
+            self.n += 1
+            return real(*args, **kw)
+        return run
+
+
+def _zamba_golden(device):
+    """zamba2-smoke through the kernels, teacher-forced, against the JAX
+    package's logits (``golden_zamba.json``)."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import RuntimeFlags, build_model
+
+    golden = json.loads(GOLDEN_ZAMBA.read_text())
+    cfg = get_smoke_config(golden["arch"])
+    model = build_model(cfg)
+    flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
+                         compute_dtype="float32")
+    params = convert.tree_from_numpy(
+        convert.numpy_params(model.specs(), golden["param_seed"]), device)
+    toks = torch.as_tensor(np.asarray(golden["tokens"]), device=device)
+    prompt, steps = golden["prompt_len"], golden["steps"]
+    logits, caches = model.prefill(params, {"tokens": toks[:, :prompt]},
+                                   flags, prompt + steps)
+    out = [logits[:, 0]]
+    for i in range(steps):
+        pos = prompt + i
+        logits, caches = model.decode(params, caches, toks[:, pos:pos + 1],
+                                      pos, flags)
+        out.append(logits[:, 0])
+    got = torch.stack(out).cpu().double()
+    want = torch.tensor(golden["logits"], dtype=torch.float64)
+    err = (got - want).abs().max().item()
+    _line("model", golden=GOLDEN_ZAMBA.name, config=cfg.name,
+          steps=steps + 1, max_abs_err=err, atol=2e-4)
+    if not err <= 2e-4:
+        raise AssertionError(f"zamba2-smoke on the card differs from the JAX "
+                             f"package's logits by {err} (atol 2e-4)")
+
+
+def phase_model(device, cfg=None, batch=ZAMBA["batch"],
+                prompt=ZAMBA["prompt"], gen=ZAMBA["gen"]):
+    """Serve zamba2-7b at full width and depth through
+    ``repro_torch.launch.serve.generate`` with the launch counts at 0, then
+    hold each kernel against its plain version on the arguments captured
+    from that run, time it, and check the smoke model's golden logits."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sk_ops
+    from repro_torch.kernels.ssm_scan.ref import linear_scan_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import RuntimeFlags, build_model
+
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(ZAMBA["arch"])
+    model = build_model(cfg)
+    flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
+                         compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats(device)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        torch.float32, device)
+    n_params = model.n_params()
+    toks = make_batch(cfg, "serve", batch, prompt, seed=0, step=0)["tokens"]
+    tokens = torch.as_tensor(toks, device=device)
+    torch.cuda.synchronize(device)
+    _line("model", arch=cfg.name, params=n_params, layers=cfg.n_layers,
+          d_model=cfg.d_model, batch=batch, prompt=prompt, gen=gen,
+          init_s=f"{time.perf_counter() - t0:.1f}")
+
+    n_scan = cfg.n_layers
+    n_sites = cfg.n_layers // cfg.attn_every
+    caps = {"ssm_scan": _Capture(sk, "ssm_scan_cuda",
+                                 lambda i: i in (0, n_scan - 1)),
+            "flash_attention": _Capture(fa, "flash_attention_cuda",
+                                        lambda i: i == 0),
+            # The last decode call stands for decode.
+            "decode_attention": _Capture(
+                da, "decode_attention_cuda",
+                lambda i: i == n_sites * (gen - 1) - 1)}
+    mods = {"ssm_scan": sk_ops, "flash_attention": fa_ops,
+            "decode_attention": da_ops}
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    for name, mod in mods.items():
+        mod._kernel = caps[name]
+    try:
+        with _HostClock() as clock:
+            out, tps, prefill_s = generate(model, params, flags,
+                                           {"tokens": tokens}, prompt, gen,
+                                           prompt + gen)
+        torch.cuda.synchronize(device)
+    finally:
+        for name, mod in mods.items():
+            mod._kernel = caps[name].module
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    want = {"ssm_scan": cfg.n_layers, "flash_attention": n_sites,
+            "decode_attention": n_sites * (gen - 1), "select_step": 0,
+            "tree_predict": 0, "gh_ei": 0}
+    host = out.cpu()
+    _line("model", drive="repro_torch.launch.serve.generate",
+          prefill_s=f"{prefill_s:.4f}", decode_tokens_per_s=f"{tps:.1f}",
+          peak_gb=f"{peak_gb:.2f}", **clock.fields(),
+          launches=json.dumps(launches, separators=(",", ":")),
+          sample=host[0, :10].tolist())
+    if launches != want:
+        raise AssertionError(f"launches on the serving path {launches}, "
+                             f"expected {want}")
+    if tuple(host.shape) != (batch, gen) or not (
+            (host >= 0) & (host < cfg.vocab)).all():
+        raise AssertionError(f"generated tokens {tuple(host.shape)} out of "
+                             f"range")
+    # The same requests again, for the spread of the two rates.
+    prefill_runs, tps_runs = [prefill_s], [tps]
+    for run in range(1, SERVE_RUNS):
+        with _HostClock() as clock:
+            _, tps_r, prefill_r = generate(model, params, flags,
+                                           {"tokens": tokens}, prompt, gen,
+                                           prompt + gen)
+        prefill_runs.append(prefill_r)
+        tps_runs.append(tps_r)
+        _line("model", drive="repro_torch.launch.serve.generate", run=run,
+              prefill_s=f"{prefill_r:.4f}",
+              decode_tokens_per_s=f"{tps_r:.1f}", **clock.fields())
+    prefill_med = float(np.median(prefill_runs))
+    tps_med = float(np.median(tps_runs))
+    _line("model", runs=SERVE_RUNS, prefill_s_median=f"{prefill_med:.4f}",
+          decode_tokens_per_s_median=f"{tps_med:.1f}",
+          decode_step_s_median=f"{batch / tps_med:.4f}")
+
+    rows, failures = [], []
+
+    def report(name, case, err, bad, ms, plain_ms, lib_ms, nbytes, ops,
+               peak=FP32_OPS_PER_S, **extra):
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = ops / peak * 1e3
+        row = dict(kernel=name, case=case, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=max(byte_ms, op_ms),
+                   bound_by="bytes" if byte_ms >= op_ms else "operations",
+                   bytes=nbytes, ops=ops, launches=launches[name], **extra)
+        rows.append(row)
+        _line("model", **{k: _fmt(k, v) for k, v in row.items()},
+              within_tol=not bad)
+        failures.extend(f"{name} {case}: {b}" for b in bad)
+
+    # ssm_scan: layer 0 and the last layer, float32, then k/q/v in bf16.
+    chunk = min(cfg.ssm_chunk, prompt)
+    # bf16 keeps B and C broadcast over the heads (stride 0).
+    bf16 = lambda t: (t[:, :, :1].to(torch.bfloat16).expand(t.shape)
+                      if t.stride(2) == 0 else t.to(torch.bfloat16))
+    for i, (args, kw) in sorted(caps["ssm_scan"].calls.items()):
+        for dtype in ("float32", "bfloat16"):
+            a = list(args)
+            if dtype == "bfloat16":
+                a[:3] = [bf16(t) for t in a[:3]]
+            prep, outs, keep = sk.prepare(*a, **kw)
+            sk.launch(prep)
+            want_out = linear_scan_ref(*a, **kw)
+            exact = linear_scan_ref(*(t.double() for t in a), **kw)
+            torch.cuda.synchronize(device)
+            err, bad, extra = _scan_check(outs, want_out, exact,
+                                          SSM_PLAIN_TOL[dtype])
+            del exact
+            ms = _launch_ms(lambda: sk.launch(prep), n=20)
+            plain_ms = _median_ms(lambda: linear_scan_ref(*a, **kw), reps=5,
+                                  warmup=1)
+            nbytes, recurrence, chunked = _ssm_work(a, kw, chunk)
+            # The least time over the two algorithms: the recurrence on the
+            # CUDA cores whatever the input type, the chunked form's
+            # products at the peak of the inputs' type.
+            peak = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+            ops, peak, algorithm = min(
+                (recurrence, FP32_OPS_PER_S, "recurrence"),
+                (chunked, peak, "chunked"), key=lambda w: w[0] / w[1])
+            b_, l_, h_, n_ = a[0].shape
+            report("ssm_scan", f"layer {i}, {dtype}", err, bad, ms, plain_ms,
+                   None, nbytes, ops, peak=peak, ops_algorithm=algorithm,
+                   ops_recurrence=recurrence, ops_chunked=chunked,
+                   B=b_, L=l_, H=h_, N=n_, P=a[1].shape[-1], chunk=chunk,
+                   k_head_stride=a[0].stride(2), **extra)
+            del prep, outs, keep, want_out
+    # flash_attention at site 0 of the prefill.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for (args, kw) in caps["flash_attention"].calls.values():
+        q, k, v = args
+        prep, o, keep = fa.prepare(q, k, v, **kw)
+        fa.launch(prep)
+        want_o = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize(device)
+        err, bad = _close(2e-5, 2e-5)(o, want_o)
+        ms = _launch_ms(lambda: fa.launch(prep), n=10)
+        plain_ms = _median_ms(lambda: attention_ref(q, k, v, **kw), reps=3,
+                              warmup=1)
+        lib_ms = _launch_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                         scale=kw.get("scale")), n=10)
+        b_, h_, s_, d_ = q.shape
+        pairs = _live_pairs(s_, k.shape[2], kw["causal"], kw["window"])
+        report("flash_attention", f"{cfg.name} site 0 prefill, f32", err,
+               bad, ms, plain_ms, lib_ms,
+               2 * _tensor_bytes(q) + _tensor_bytes(k, v),
+               4 * d_ * h_ * b_ * pairs, B=b_, H=h_, KH=k.shape[1], S=s_,
+               T=k.shape[2], D=d_)
+        del prep, o, keep, want_o
+    # decode_attention: the last step's last site, over the ring cache
+    # views the model hands it (strided [B, KH, T, D]).
+    for (args, kw) in caps["decode_attention"].calls.values():
+        q, k, v, pos = args
+        prep, o, keep = da.prepare(q, k, v, pos, **kw)
+        da.launch(prep)
+        want_o = decode_attention_ref(q, k, v, pos, **kw)
+        torch.cuda.synchronize(device)
+        err, bad = _close(2e-5, 2e-5)(o, want_o)
+        ms = _launch_ms(lambda: da.launch(prep), n=20)
+        plain_ms = _median_ms(
+            lambda: decode_attention_ref(q, k, v, pos, **kw), reps=5,
+            warmup=1)
+        t_ = k.shape[2]
+        live_mask = _live_mask(t_, int(pos), kw.get("window"))
+        live = int(live_mask.sum())
+        mask = torch.from_numpy(live_mask).to(device)[None, None, None]
+        lib_ms = _launch_ms(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask,
+                                         scale=kw.get("scale"))[:, :, 0],
+                            n=20)
+        b_, h_, d_ = q.shape
+        report("decode_attention",
+               f"{cfg.name} last step, site {n_sites - 1}, pos {int(pos)}, "
+               f"f32", err, bad, ms, plain_ms, lib_ms,
+               2 * _tensor_bytes(q) + _tensor_bytes(k, v) * live // t_,
+               4 * d_ * h_ * b_ * live, B=b_, H=h_, KH=k.shape[1], T=t_,
+               D=d_, live_slots=live, k_strides=list(k.stride()))
+        del prep, o, keep, want_o
+    caps.clear()
+    # Where the time goes: one prefill and one decode step, profiled.
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = model.prefill(
+            params, {"tokens": tokens}, flags, prompt + gen)
+
+    _profile("prefill", prefill, prefill_med)
+    nxt = torch.argmax(state.pop("logits"), dim=-1)
+    _profile("decode step", lambda: model.decode(params, state["caches"],
+                                                 nxt, prompt, flags),
+             batch / tps_med)
+    state.clear()
+    del params, out, tokens
+    torch.cuda.empty_cache()
+    _zamba_golden(device)
+    _line("model", phase_s=f"{time.perf_counter() - t0:.1f}")
+    if failures:
+        raise AssertionError(f"{len(failures)} kernel outputs on the "
+                             f"serving path differ from the plain version: "
+                             f"{failures[:3]}")
+    return rows, launches, dict(prefill_s=prefill_runs,
+                                decode_tokens_per_s=tps_runs,
+                                peak_gb=peak_gb)
+
+
+def _all_counters():
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_cuda
+    return dict(_op_counters(), select_step=select_step_cuda,
+                ssm_scan=ssm_scan_cuda)
+
+
 # Of each op's cases, the one that stands for it in the summary line (its
 # label's start and end), and the TPU kernel it replaces.
 OP_SUMMARY = {
@@ -823,10 +1276,12 @@ OP_SUMMARY = {
                      "src/repro/kernels/tree_predict/kernel.py:88"),
     "gh_ei": ("tf-cnn root posterior, step's beta", "",
               "src/repro/kernels/gh_ei/kernel.py:70"),
-    "flash_attention": ("global:", "bfloat16",
+    "flash_attention": ("zamba2", "",
                         "src/repro/kernels/flash_attention/kernel.py:111"),
-    "decode_attention": ("global cache", "bfloat16",
+    "decode_attention": ("zamba2", "",
                          "src/repro/kernels/decode_attention/kernel.py:88"),
+    "ssm_scan": ("layer 0, float32", "",
+                 "src/repro/kernels/ssm_scan/kernel.py:83"),
 }
 
 
@@ -887,6 +1342,11 @@ def main() -> int:
     op_rows, op_launches = phase_ops(device, tf_job)
     launches = phase_main(device, tf_job)
     phase_golden(device)
+    model_rows, model_launches, _serving = phase_model(device)
+    # Each kernel's launches come from the path that runs it: tree_predict
+    # and gh_ei from the ops drive, the model kernels from the serving run.
+    op_launches.update({k: model_launches[k] for k in
+                        ("flash_attention", "decode_attention", "ssm_scan")})
     # The depth-2 launch, the one that moves the most bytes, stands for the
     # kernel in the summary line.
     row = next(r for r in rows if r["case"].startswith("d2_")
@@ -899,7 +1359,7 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": {"S": row["S"], "M": row["M"]},
-    }] + _op_summary(op_rows, op_launches)
+    }] + _op_summary(op_rows + model_rows, op_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,8 +14,10 @@ import torch
 from repro_torch.core.space import DiscreteSpace, GeometryBucket, PaddedSpace
 from repro_torch.core.trees import ForestParams
 from repro_torch.jobs.tables import JobTable
+from repro_torch.models.params import fan_in, spec_leaves, unflatten
 
-__all__ = ["forest_from_numpy", "space_from_numpy", "job_from_numpy"]
+__all__ = ["forest_from_numpy", "space_from_numpy", "job_from_numpy",
+           "numpy_params", "tree_from_numpy"]
 
 
 def forest_from_numpy(feat, thr, leaf, device="cpu") -> ForestParams:
@@ -50,3 +52,34 @@ def job_from_numpy(name, space, runtime, unit_price, t_max) -> JobTable:
     """A ``JobTable`` over a port space from its table columns."""
     return JobTable(str(name), space, np.asarray(runtime),
                     np.asarray(unit_price), float(t_max))
+
+
+def numpy_params(specs, seed: int) -> dict:
+    """Weights drawn with numpy for a ParamSpec tree: one
+    ``default_rng(seed)`` visits the leaves in ``jax.tree`` order (keys
+    sorted) and draws ``std · N(0, 1)`` float32 for each normal leaf, with
+    the specs' std rule; zeros and ones as the specs say.  The same arrays
+    go to both packages (``jnp.asarray`` on the JAX side,
+    :func:`tree_from_numpy` here), which is how the tests and
+    ``chip_smoke.py``'s golden check give them the same model."""
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for path, s in spec_leaves(specs):
+        if s.init in ("zeros", "ones"):
+            a = (np.zeros if s.init == "zeros" else np.ones)(s.shape,
+                                                             np.float32)
+        else:
+            std = s.std if s.std is not None else fan_in(s) ** -0.5
+            a = (std * rng.standard_normal(s.shape)).astype(np.float32)
+        leaves.append((path, a))
+    return unflatten(leaves)
+
+
+def tree_from_numpy(tree, device="cpu"):
+    """A dict of tensors from the same dict of numpy arrays, one array to
+    one tensor, nothing transposed: the reference's Zamba2 parameters or
+    serving caches (``jax.tree.map(np.asarray, tree)``) become the port's,
+    whose keys, layouts and dtypes are the reference's."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree), device=device)

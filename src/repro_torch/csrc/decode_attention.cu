@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel `decode_attention_call` / `_kernel` of
 // src/repro/kernels/decode_attention/kernel.py (pallas_call at line 88).
-// q [B, H, D] and k, v [B, KH, T, D] (float32 or bfloat16, contiguous)
-// give o [B, H, D] in q's type.  Slot i of the ring holds absolute position
+// q [B, H, D] (contiguous) and k, v [B, KH, T, D] (float32 or bfloat16;
+// each row of D values contiguous, rows at the strides the caller gives,
+// so a [B, T, KH, D] cache goes in as its transposed view) give o
+// [B, H, D] in q's type.  Slot i of the ring holds absolute position
 // pos - ((pos - i) mod T) with floor modulo; a slot is live if that
 // position is in [0, pos] and, with a window, > pos - window.  Dead slots
 // score -0.7·FLT_MAX, as in the TPU kernel.  The write position `pos` is
@@ -64,11 +66,24 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int n) {
     *reinterpret_cast<float4*>(dst + i) = load4(src + i);
 }
 
+// `rows` rows of D values (D a multiple of 4), row r at src + r·stride,
+// into `dst` [rows][D] as float32.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+                                           int rows, int D,
+                                           long long stride) {
+#pragma unroll 4
+  for (int i = 4 * threadIdx.x; i < rows * D; i += 4 * kThreads)
+    *reinterpret_cast<float4*>(dst + i) = load4(src + (i / D) * stride
+                                                + i % D);
+}
+
 struct Params {
   int H, KH, T, D, window;   // window <= 0: none
   float scale;
   const int* pos_ptr;        // null: use pos_val
   int pos_val;
+  long long sb, sh, st;      // K/V strides of batch, KV head and slot
 };
 
 template <typename T>
@@ -91,8 +106,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int pos = p.pos_ptr != nullptr ? *p.pos_ptr : p.pos_val;
   // The G query heads of this KV head are contiguous in q and o.
   const size_t qo_off = static_cast<size_t>(bkv) * G * D;
-  const T* kb = k + static_cast<size_t>(bkv) * p.T * D;
-  const T* vb = v + static_cast<size_t>(bkv) * p.T * D;
+  const long long kv_off = (bkv / p.KH) * p.sb + (bkv % p.KH) * p.sh;
+  const T* kb = k + kv_off;
+  const T* vb = v + kv_off;
   stage(qs, q + qo_off, G * D);
   for (int g = threadIdx.x; g < G; g += kThreads) {
     m_s[g] = kNeg;
@@ -106,8 +122,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t0 = 0; t0 < p.T; t0 += kTile) {
     const int rows = min(kTile, p.T - t0);
     __syncthreads();                      // the previous tile is consumed
-    stage(ks, kb + static_cast<size_t>(t0) * D, rows * D);
-    stage(vs, vb + static_cast<size_t>(t0) * D, rows * D);
+    stage_rows(ks, kb + t0 * p.st, rows, D, p.st);
+    stage_rows(vs, vb + t0 * p.st, rows, D, p.st);
     __syncthreads();
 
     // Scores: one warp per key, lanes over D in float4 steps.
@@ -221,16 +237,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // (D not a multiple of 4, H not a multiple of KH, G·D > 4096, T < 1).
 // bf16 != 0: the tensors are bfloat16, else float32.  pos_ptr: an int32 on
 // the card, or null to use pos_val.  window <= 0 means no window.
+// s_batch, s_head and s_slot are the element strides of K and V (the same
+// for both) over batch, KV head and slot; each a multiple of 4 (the rows
+// are read as 16- or 8-byte vectors): s_slot = D and s_head = T·D for a
+// contiguous cache.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, void* o, int bf16,
                                        int B, int H, int KH, int T, int D,
                                        float scale, int window,
                                        const int* pos_ptr, int pos_val,
-                                       void* stream) {
+                                       long long s_batch, long long s_head,
+                                       long long s_slot, void* stream) {
   if (D <= 0 || D % 4 != 0 || KH <= 0 || H % KH != 0 || T < 1
-      || (H / KH) * D > kThreads * kMaxOut)
+      || (H / KH) * D > kThreads * kMaxOut || s_batch < 0 || s_head < 0
+      || s_slot < 0 || s_batch % 4 != 0 || s_head % 4 != 0
+      || s_slot % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{H, KH, T, D, window, scale, pos_ptr, pos_val};
+  const Params p{H,     KH,      T,       D,      window, scale,
+                 pos_ptr, pos_val, s_batch, s_head, s_slot};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(q, k, v, o, B, p, st)
               : launch<float>(q, k, v, o, B, p, st);

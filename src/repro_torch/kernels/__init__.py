@@ -7,11 +7,11 @@ version — the port of ``repro.kernels``.
   gh_ei            — fused constrained EI + budget flag + Gauss-Hermite nodes
   flash_attention  — train/prefill attention (causal/window/softcap, GQA)
   decode_attention — single-token attention over a ring KV cache
+  ssm_scan         — chunked SSD / gated linear recurrence (Mamba2)
 
-``ssm_scan`` joins when it is ported with the model zoo, whose
-``chunked_linear_scan`` is its reference.  Each op sends CPU tensors to
-its plain version and CUDA tensors to its kernel (``kernels.dispatch``);
-the kernels are built from ``csrc/*.cu`` at first use (``kernels.build``).
+Each op sends CPU tensors to its plain version and CUDA tensors to its
+kernel (``kernels.dispatch``); the kernels are built from ``csrc/*.cu`` at
+first use (``kernels.build``).
 """
 
 # The core package first: its lookahead imports select_step's op, which
@@ -22,7 +22,8 @@ from repro_torch.kernels.dispatch import resolve_mode
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.gh_ei.ops import gh_ei
 from repro_torch.kernels.select_step.ops import select_step
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.tree_predict.ops import tree_predict
 
-__all__ = ["flash_attention", "decode_attention", "tree_predict", "gh_ei",
-           "select_step", "resolve_mode"]
+__all__ = ["flash_attention", "decode_attention", "ssm_scan",
+           "tree_predict", "gh_ei", "select_step", "resolve_mode"]

@@ -41,9 +41,11 @@ def require_cuda(op: str, t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def check(op: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def check(op: str, name: str, t: torch.Tensor, dtype, shape, device, *,
+          contiguous: bool = True) -> None:
     """Raise unless ``t`` lies on ``device`` with ``dtype`` (one dtype or a
-    tuple of them) and ``shape``, contiguous."""
+    tuple of them) and ``shape``, contiguous unless ``contiguous=False``
+    (for a kernel that reads through the strides)."""
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device != device:
         raise ValueError(f"{op}: {name} is on {t.device}, expected {device}")
@@ -53,7 +55,7 @@ def check(op: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{op}: {name} is not contiguous")
 
 

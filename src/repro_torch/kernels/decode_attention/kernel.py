@@ -5,9 +5,16 @@
 launches once on prepared arguments, and :func:`decode_attention_cuda`
 does both and counts the launch in ``decode_attention_cuda.launches`` (and
 nowhere else).
+
+K and V are read through their strides: each row of D values contiguous,
+the batch, head and slot strides free (the same for K and V).  So a cache
+kept as [B, T, KH, D], the reference's layout, goes in as its transposed
+view without a copy.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -25,7 +32,17 @@ MAX_GROUP_WIDTH = 4096
 def _fn():
     return capi.entry(_OP, "decode_attention_launch",
                       [capi.P] * 4 + [capi.I] * 6
-                      + [capi.F, capi.I, capi.P, capi.I, capi.P])
+                      + [capi.F, capi.I, capi.P, capi.I]
+                      + [ctypes.c_longlong] * 3 + [capi.P])
+
+
+def _check_cache(name, t, dtype, shape, device):
+    """``t`` as ``capi.check`` has it, but with rows of D contiguous and
+    every other stride free, a multiple of 4 (vector loads)."""
+    capi.check(_OP, name, t, dtype, shape, device, contiguous=False)
+    if t.stride(3) != 1 or any(st % 4 for st in t.stride()[:3]):
+        raise ValueError(f"{_OP}: {name} needs contiguous rows and strides "
+                         f"that are multiples of 4, got {t.stride()}")
 
 
 def prepare(q, k, v, pos, *, scale=None, window=None):
@@ -36,8 +53,11 @@ def prepare(q, k, v, pos, *, scale=None, window=None):
     b, h, d = q.shape
     kh, t = k.shape[1], k.shape[2]
     capi.check(_OP, "q", q, DTYPES, (b, h, d), dev)
-    capi.check(_OP, "k", k, DTYPES, (b, kh, t, d), dev)
-    capi.check(_OP, "v", v, DTYPES, (b, kh, t, d), dev)
+    _check_cache("k", k, q.dtype, (b, kh, t, d), dev)
+    _check_cache("v", v, q.dtype, (b, kh, t, d), dev)
+    if v.stride() != k.stride():
+        raise ValueError(f"{_OP}: k and v have strides {k.stride()} and "
+                         f"{v.stride()}; the kernel takes one set")
     check_heads(_OP, q, k, v, h, kh, d)
     if t < 1:
         raise ValueError(f"{_OP}: the cache holds no slot")
@@ -59,7 +79,7 @@ def prepare(q, k, v, pos, *, scale=None, window=None):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, kh, t, d,
             float(np.float32(scale)), 0 if window is None else int(window),
-            capi.ptr(pos_t), pos_val, capi.stream(dev))
+            capi.ptr(pos_t), pos_val, *k.stride()[:3], capi.stream(dev))
     return args, o, (q, k, v, pos_t)
 
 

@@ -1,0 +1,80 @@
+"""Plain PyTorch version of the chunked SSD scan — same contract as the
+CUDA kernel in ``csrc/ssm_scan.cu``.
+
+The PyTorch form of ``repro.models.ssm.chunked_linear_scan`` (the
+reference's ``ssm_scan_ref``): the tail padded to a whole chunk with gate
+0 and log-decay 0 (the state is untouched), the intra-chunk quadratic form
+in the inputs' dtype with the decay-and-gate weights in float32, the
+chunk summaries in float32 and a sequential loop over chunks for the
+carried state.  It serves the CPU path and the tests; on the card it is
+the kernel's yardstick (``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["linear_scan_ref", "ssm_scan_ref"]
+
+
+def linear_scan_ref(k, v, q, log_decay, gate, *, chunk: int,
+                    initial_state=None):
+    """Gated linear recurrence ``S_t = exp(ld_t)·S_{t-1} + g_t·k_t v_tᵀ``,
+    ``y_t = q_t · S_t``, chunk-parallel.
+
+    k, q [B, L, H, N]; v [B, L, H, P]; log_decay, gate [B, L, H];
+    initial_state [B, H, N, P] or None (zeros).  Returns (y [B, L, H, P],
+    final_state [B, H, N, P]) in float32 (float64 for float64 inputs).
+    """
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    # float32 for float32 and bf16 inputs, as the reference computes; a
+    # float64 call stays float64 throughout (the card's exact yardstick).
+    acc = torch.promote_types(k.dtype, torch.float32)
+    pad = (-l) % chunk
+    if pad:                        # tail-pad: gate 0, decay 1 (state-neutral)
+        k, v, q = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (k, v, q))
+        log_decay, gate = (F.pad(x, (0, 0, 0, pad))
+                           for x in (log_decay, gate))
+    nc = (l + pad) // chunk
+    r = lambda x: x.reshape((b, nc, chunk) + tuple(x.shape[2:]))
+    kc, vc, qc = r(k), r(v), r(q)
+    ld = r(log_decay).to(acc)                        # [B,C,Q,H]
+    g = r(gate).to(acc)
+
+    # ---- intra-chunk (quadratic within the chunk) --------------------- #
+    cum_t = torch.cumsum(ld.permute(0, 1, 3, 2), dim=-1)     # [B,C,H,Q]
+    seg = cum_t[..., :, None] - cum_t[..., None, :]          # [B,C,H,Q,Q]
+    ii = torch.arange(chunk, device=k.device)
+    lower = ii[:, None] >= ii[None, :]
+    decay_m = torch.exp(torch.where(lower, seg, float("-inf")))
+    att = torch.einsum("bcihn,bcjhn->bchij", qc, kc)
+    att = att * decay_m * g.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", att.to(vc.dtype), vc)
+
+    # ---- chunk summaries + sequential inter-chunk scan ----------------- #
+    cum = torch.cumsum(ld, dim=2)                    # [B,C,Q,H]
+    total = cum[:, :, -1, :]                         # [B,C,H]
+    # state contribution of chunk c: sum_j exp(total - cum_j) g_j k_j v_j^T
+    w_in = torch.exp(total[:, :, None, :] - cum) * g            # [B,C,Q,H]
+    s_chunk = torch.einsum("bcqhn,bcqhp->bchnp",
+                           w_in[..., None] * kc.to(acc), vc.to(acc))
+    s = (torch.zeros((b, h, n, p), dtype=acc, device=k.device)
+         if initial_state is None else initial_state.to(acc))
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = s * torch.exp(total[:, c])[..., None, None] + s_chunk[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)            # [B,C,H,N,P]
+
+    # y_inter_i = exp(cum_i) * q_i · S_{prev chunk}
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", qc.to(acc),
+                           s_prevs) * torch.exp(cum)[..., None]
+    y = (y_intra.to(acc) + y_inter).reshape(b, nc * chunk, h, p)
+    return y[:, :l], s
+
+
+def ssm_scan_ref(k, v, q, log_decay, gate, *, chunk: int = 256):
+    """y only, as ``repro.kernels.ssm_scan.ref.ssm_scan_ref``."""
+    return linear_scan_ref(k, v, q, log_decay, gate, chunk=chunk)[0]

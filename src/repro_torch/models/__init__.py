@@ -1,0 +1,7 @@
+"""The model zoo of the port — ``repro.models`` for the families it serves
+(the hybrid Zamba2 so far)."""
+
+from repro_torch.models.api import Model, build_model
+from repro_torch.models.config import ModelConfig, RuntimeFlags
+
+__all__ = ["Model", "ModelConfig", "RuntimeFlags", "build_model"]

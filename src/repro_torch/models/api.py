@@ -1,0 +1,60 @@
+"""Model API: family dispatch behind one namespace — ``repro.models.api``
+for the families the port serves.
+
+``build_model(cfg)`` returns a :class:`Model` whose methods close over the
+architecture config; ``RuntimeFlags`` stay explicit arguments, as in the
+reference.  Only the serving methods exist so far (``loss`` waits for the
+training slice, ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.models import zamba as zb
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import count_params, init_params
+
+__all__ = ["Model", "build_model"]
+
+# The ROADMAP item that ports each family the port does not serve yet.
+_TODO = {"dense": "A11 (dense transformer family)",
+         "moe": "A11 (MoE/MLA family)", "vlm": "A11 (VLM family)",
+         "audio": "A11 (audio family)", "ssm": "A11 (xLSTM family)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    specs: Callable          # () -> ParamSpec tree
+    prefill: Callable        # (params, batch, flags, cache_len) -> (logits, caches)
+    decode: Callable         # (params, caches, tokens, pos, flags) -> (logits, caches)
+    cache_shapes: Callable   # (batch, cache_len) -> dict of shape tuples
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device="cuda"):
+        """Parameters drawn from ``generator`` on ``device`` (the card
+        unless asked; see ``params.init_params``)."""
+        return init_params(self.specs(), generator, dtype, device)
+
+    def n_params(self) -> int:
+        return count_params(self.specs())
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            specs=lambda: zb.zamba_specs(cfg),
+            prefill=lambda p, b, f, cl: zb.zamba_prefill(p, cfg, f, b, cl),
+            decode=lambda p, c, t, pos, f: zb.zamba_decode(p, cfg, f, c, t,
+                                                           pos),
+            cache_shapes=lambda b, cl: zb.zamba_cache_shapes(cfg, b, cl),
+        )
+    if cfg.family in _TODO:
+        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "
+                                  f"not ported yet: ROADMAP {_TODO[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,0 +1,122 @@
+"""Shared building blocks: norms, the gated MLP, rotary embeddings,
+embeddings and the causal depthwise conv — ``repro.models.layers`` in
+PyTorch.
+
+Weights keep the reference's layouts (a projection is ``x @ w`` with
+``w`` [in, out]), so parameters convert from the JAX package by a plain
+copy.  Parameter specs are declared with ``repro_torch.models.params``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import spec
+
+__all__ = ["rmsnorm_spec", "rmsnorm", "mlp_specs", "mlp", "rope",
+           "embed_specs", "embed", "unembed", "causal_conv1d"]
+
+
+def rmsnorm_spec(d: int, layers: int | None = None):
+    shape, axes = (d,), ("embed",)
+    if layers is not None:
+        shape, axes = (layers, d), ("layers", "embed")
+    return spec(shape, axes, init="zeros")          # Gemma-style (1 + w)
+
+
+def rmsnorm(w, x, eps: float = 1e-6):
+    """Gemma-style RMSNorm, ``(1 + w)`` scale, float32 inside."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return ((1.0 + w.to(torch.float32)) * x).to(dt)
+
+
+def mlp_specs(d: int, ff: int, act: str, layers: int | None = None):
+    lead_shape, lead_axes = (), ()
+    if layers is not None:
+        lead_shape, lead_axes = (layers,), ("layers",)
+    p = {"up": spec(lead_shape + (d, ff), lead_axes + ("embed", "ffn")),
+         "down": spec(lead_shape + (ff, d), lead_axes + ("ffn", "embed"))}
+    if act in ("swiglu", "geglu"):
+        p["gate"] = spec(lead_shape + (d, ff), lead_axes + ("embed", "ffn"))
+    return p
+
+
+def _act(x, act: str):
+    if act == "swiglu":
+        return F.silu(x)
+    if act in ("geglu", "gelu"):
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(act)
+
+
+def mlp(p, x, act: str):
+    h = x @ p["up"]
+    if "gate" in p:
+        h = h * _act(x @ p["gate"], act)
+    else:
+        h = _act(h, act)
+    return h @ p["down"]
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """Split-half RoPE.  x [B, S, H, D]; positions [B, S] (or [S])."""
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions.to(device=x.device, dtype=torch.float32)[..., None] * freq
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def embed_specs(vocab: int, d: int, tied: bool):
+    p = {"tokens": spec((vocab, d), ("vocab", "embed"), std=1.0)}
+    if not tied:
+        p["unembed"] = spec((d, vocab), ("embed", "vocab"))
+    return p
+
+
+def embed(p, tokens, *, scale: bool, d: int):
+    x = p["tokens"][tokens.to(torch.int64)]
+    if scale:                                        # Gemma convention
+        x = x * torch.tensor(math.sqrt(d), dtype=x.dtype)
+    return x
+
+
+def unembed(p, x, *, softcap: float | None = None):
+    if "unembed" in p:
+        logits = x @ p["unembed"]
+    else:
+        logits = x @ p["tokens"].T                   # tied
+    logits = logits.to(torch.float32)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+def causal_conv1d(w, x, state=None):
+    """Depthwise causal conv.  w [C, K]; x [B, L, C]; state [B, K-1, C] or
+    None (zeros).  Returns (y [B, L, C], new_state [B, K-1, C])."""
+    k = w.shape[-1]
+    if state is None:
+        state = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)   # [B, L+K-1, C]
+    # y[t] = sum_i w[:, i] * xp[t + i]  (w[:, K-1] multiplies the current
+    # token), summed left to right as the reference does.
+    length = x.shape[1]
+    y = xp[:, 0:length, :] * w[:, 0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + length, :] * w[:, i]
+    # A copy, not a view: a view would keep the whole [B, L+K-1, C] input
+    # alive in the prefill's stacked states.
+    new_state = xp[:, -(k - 1):, :].clone() if k > 1 else state
+    return y, new_state

@@ -1,0 +1,96 @@
+"""Parameter specs: declare once, then count, draw or convert.
+
+Models declare their parameters as a nested dict of :class:`ParamSpec`
+(shape + logical axis names + initializer), as ``repro.models.params``
+does, and the parameters themselves are a nested dict of tensors of the
+same structure and the same layouts.  Leaves are visited in the order of
+``jax.tree`` flattening: dict keys sorted at every level.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["ParamSpec", "spec", "spec_leaves", "fan_in", "init_params",
+           "count_params", "unflatten"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]   # logical axis name per dim (None = no name)
+    init: str = "normal"           # normal | zeros | ones
+    std: float | None = None       # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def spec(shape, axes, init: str = "normal", std: float | None = None
+         ) -> ParamSpec:
+    return ParamSpec(tuple(int(s) for s in shape), tuple(axes), init, std)
+
+
+def spec_leaves(specs, prefix: tuple = ()):
+    """``[(path, ParamSpec)]`` in ``jax.tree`` order (keys sorted)."""
+    if isinstance(specs, ParamSpec):
+        return [(prefix, specs)]
+    out = []
+    for key in sorted(specs):
+        out += spec_leaves(specs[key], prefix + (key,))
+    return out
+
+
+def unflatten(paths_and_values) -> dict:
+    """The nested dict of ``[(path, value)]``."""
+    tree: dict = {}
+    for path, value in paths_and_values:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+def fan_in(s: ParamSpec) -> int:
+    """Every dim but the last (the output features) and the stacking axes."""
+    stacked = {"layers", "experts", "groups"}
+    dims = [d for d, a in zip(s.shape[:-1], s.axes[:-1]) if a not in stacked]
+    return int(np.prod(dims)) if dims else 1
+
+
+def init_params(specs, generator: torch.Generator, dtype=torch.float32,
+                device="cuda"):
+    """Materialize parameters on ``device`` (the card unless asked).
+
+    Normal leaves are ``std · N(0, 1)`` drawn from ``generator`` (which must
+    live on ``device``) leaf by leaf in ``jax.tree`` order, with the
+    reference's std rule (``spec.std`` or ``fan_in ** -0.5``).  The bits
+    differ from the reference's ``init_params``, which keys each leaf by
+    its path through ``jax.random``; tests that compare the two packages
+    draw one set of weights with numpy and hand it to both
+    (``repro_torch.convert``).
+    """
+    dev = resolve_device(device)
+    leaves = []
+    for path, s in spec_leaves(specs):
+        if s.init == "zeros":
+            t = torch.zeros(s.shape, dtype=dtype, device=dev)
+        elif s.init == "ones":
+            t = torch.ones(s.shape, dtype=dtype, device=dev)
+        else:
+            std = s.std if s.std is not None else fan_in(s) ** -0.5
+            t = torch.randn(s.shape, generator=generator, device=dev,
+                            dtype=torch.float32).mul_(std).to(dtype)
+        leaves.append((path, t))
+    return unflatten(leaves)
+
+
+def count_params(specs) -> int:
+    return sum(int(np.prod(s.shape)) for _, s in spec_leaves(specs))

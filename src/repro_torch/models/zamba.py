@@ -1,0 +1,173 @@
+"""Zamba2-style hybrid: a Mamba2 backbone and one weight-SHARED attention
+block — the serving path of ``repro.models.zamba`` in PyTorch.
+
+The backbone runs in groups of ``cfg.attn_every`` Mamba2 blocks, and the
+single shared attention+MLP block runs at the group boundaries (the same
+weights at every site; the released model's per-site LoRA deltas are
+omitted, as in the reference).  Leftover blocks (``n_layers %
+attn_every``) run as a tail without attention.  The reference's
+``lax.scan``s over layers are Python loops here.
+
+Parameters are a nested dict of tensors with the reference's key names
+and layouts (``mamba.*`` stacked [n_layers, ...]), so they convert from
+the JAX package one array to one tensor.  Serving state: per-layer Mamba2
+(conv, ssm) states stacked [n_layers, ...] and a per-site KV ring cache
+stacked [n_sites, B, T, KH, D] for the shared block.  ``zamba_decode``
+updates the caches in place and returns them.  Training (``zamba_loss``)
+waits for the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
+                                       rmsnorm, rmsnorm_spec, rope, unembed)
+from repro_torch.models.params import spec
+from repro_torch.models.ssm import (mamba2_block, mamba2_decode,
+                                    mamba2_specs, mamba2_state_shapes)
+
+__all__ = ["zamba_specs", "zamba_prefill", "zamba_decode",
+           "zamba_cache_shapes"]
+
+
+def _sites(cfg) -> tuple[int, int]:
+    """(number of shared-attention sites, tail mamba blocks)."""
+    n_sites = cfg.n_layers // cfg.attn_every
+    tail = cfg.n_layers - n_sites * cfg.attn_every
+    return n_sites, tail
+
+
+def zamba_specs(cfg: ModelConfig):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shared = {
+        "ln1": rmsnorm_spec(d),
+        "wq": spec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": spec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": spec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": spec((h, hd, d), ("heads", "head_dim", "embed")),
+        "ln2": rmsnorm_spec(d),
+        "mlp": mlp_specs(d, cfg.d_ff, cfg.act),
+    }
+    return {
+        "embed": embed_specs(cfg.vocab, d, cfg.tie_embeddings),
+        "mamba": mamba2_specs(cfg, cfg.n_layers),
+        "shared": shared,
+        "final_norm": rmsnorm_spec(d),
+    }
+
+
+def _layer(params, i):
+    return {name: a[i] for name, a in params["mamba"].items()}
+
+
+def _shared_attn(p, x, cfg, positions, cache=None, pos=None):
+    """The shared block at one site.  Without ``cache``: a prefill over
+    positions 0..S-1, returning the site's (k, v) [B, S, KH, D].  With
+    ``cache`` (dict k, v): one token at ``pos``, written into the ring
+    cache in place, which is returned."""
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        o = attn_mod.attend(q, k, v, causal=True, window=cfg.window)
+        new_c = (k, v)
+    else:
+        ck, cv = attn_mod.write_kv(cache["k"], cache["v"], k, v, pos)
+        o = attn_mod.attend(q, ck, cv, causal=True, window=cfg.window,
+                            pos=pos)
+        new_c = (ck, cv)
+    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
+    return x, new_c
+
+
+def zamba_cache_shapes(cfg: ModelConfig, batch: int, cache_len: int):
+    n_sites, _ = _sites(cfg)
+    ss = mamba2_state_shapes(cfg, batch)
+    if cfg.window is not None:
+        cache_len = min(cache_len, cfg.window)
+    return {
+        "conv": (cfg.n_layers,) + ss["conv"],
+        "ssm": (cfg.n_layers,) + ss["ssm"],
+        "attn_k": (n_sites, batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
+        "attn_v": (n_sites, batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
+    }
+
+
+def zamba_decode(params, cfg, flags, caches, tokens, pos):
+    """One token per sequence.  tokens [B, 1]; ``pos`` its position (a
+    Python int).  Returns (logits [B, 1, V] float32, caches), the caches
+    updated in place."""
+    dt = getattr(torch, flags.compute_dtype)
+    x = embed(params["embed"], tokens, scale=cfg.embed_scale,
+              d=cfg.d_model).to(dt)
+    positions = torch.full((tokens.shape[0], 1), int(pos),
+                           device=x.device)
+    n_sites, _ = _sites(cfg)
+
+    def mamba(i, x):
+        st = {"conv": caches["conv"][i], "ssm": caches["ssm"][i]}
+        y, st2 = mamba2_decode(_layer(params, i), x, cfg, st)
+        caches["conv"][i] = st2["conv"]
+        caches["ssm"][i] = st2["ssm"]
+        return x + y
+
+    # The shared block after each group of attn_every layers, then the tail.
+    for site in range(n_sites):
+        for j in range(cfg.attn_every):
+            x = mamba(site * cfg.attn_every + j, x)
+        x, _ = _shared_attn(params["shared"], x, cfg, positions,
+                            cache={"k": caches["attn_k"][site],
+                                   "v": caches["attn_v"][site]}, pos=pos)
+    for i in range(n_sites * cfg.attn_every, cfg.n_layers):
+        x = mamba(i, x)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params["embed"], x), caches
+
+
+def zamba_prefill(params, cfg, flags, batch, cache_len: int):
+    """The parallel forward for the last position's logits, with every
+    state: each Mamba2 layer's (conv, ssm) from its chunked scan, each
+    site's K/V ring-placed into a cache of ``cache_len`` slots.
+
+    The reference projects a site's K/V a second time for the cache; the
+    port keeps the ones the site's attention computed, the same operations
+    on the same inputs.  Returns (logits [B, 1, V] float32, caches).
+    """
+    dt = getattr(torch, flags.compute_dtype)
+    x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale,
+              d=cfg.d_model).to(dt)
+    s_len = x.shape[1]
+    positions = torch.arange(s_len, device=x.device)[None, :]
+    if cfg.window is not None:
+        cache_len = min(cache_len, cfg.window)
+    n_sites, _ = _sites(cfg)
+    convs, ssms, kcs, vcs = [], [], [], []
+
+    def site(x):
+        x, (kk, vv) = _shared_attn(params["shared"], x, cfg, positions)
+        kcs.append(attn_mod.ring_place(kk, s_len, cache_len))
+        vcs.append(attn_mod.ring_place(vv, s_len, cache_len))
+        return x
+
+    # The shared block before layers attn_every, 2·attn_every, ...
+    for i in range(cfg.n_layers):
+        if i and i % cfg.attn_every == 0:
+            x = site(x)
+        y, st = mamba2_block(_layer(params, i), x, cfg)
+        x = x + y
+        convs.append(st["conv"])
+        ssms.append(st["ssm"])
+    while len(kcs) < n_sites:                        # site after last group
+        x = site(x)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], x[:, -1:, :])
+    caches = {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
+              "attn_k": torch.stack(kcs), "attn_v": torch.stack(vcs)}
+    return logits, caches

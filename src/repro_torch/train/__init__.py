@@ -1,0 +1,5 @@
+"""Step factories of the port (serving so far)."""
+
+from repro_torch.train.step import make_serve_step
+
+__all__ = ["make_serve_step"]
