@@ -30,7 +30,16 @@ Phases, one line each with its times, then two JSON lines:
 6. golden: ``run_many`` on ``synthetic_job(0)`` through the kernel must
    reproduce ``src/repro_torch/testdata/golden_outcomes.json``, written by
    the JAX package on the CPU;
-7. model: zamba2-7b served at full width and depth (81 layers, d_model
+7. analysis: the determinism gate's kernel, masked_argmax, against its
+   plain version (both variants; random scores, near-ties, exact ties,
+   NaN, -0.0/+0.0, infinities and all-invalid rows at M = 16, 384, 4096
+   and 1 << 20: the index exactly) with its time, the plain version's and
+   the bound; then the gate, ``repro_torch.analysis``'s entry point with
+   ``--all --device cuda``, with the kernel's launch count at 0 before and
+   read after; its findings (fixtures and registered programs) held equal
+   to the CPU's; and ``python -m repro_torch.analysis --all --device cuda``
+   as a command;
+8. model: zamba2-7b served at full width and depth (81 layers, d_model
    3584, 6.75 B float32 parameters drawn on the card from a seeded
    generator) through ``repro_torch.launch.serve.generate``: B = 4 prompts
    of 1000 tokens from ``make_batch(seed=0)``, 32 tokens each, with the
@@ -1262,6 +1271,154 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
                                 peak_gb=peak_gb)
 
 
+# --------------------------------------------------------------------------- #
+# Phase 8: the determinism gate and its kernel, masked_argmax
+# --------------------------------------------------------------------------- #
+ARGMAX_WIDTHS = (16, 384, 4096, 1 << 20)
+ARGMAX_KINDS = ("random", "near_tie", "exact_tie", "nan", "signed_zero",
+                "inf", "all_invalid", "all_neg_inf")
+
+
+def _argmax_case(kind, m, seed):
+    """(score f32 [m], valid bool [m]) as numpy, made from ``seed``: the
+    edge cases of ``tests/test_torch_masked_argmax.py``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    score = rng.normal(size=m).astype(np.float32)
+    valid = rng.random(m) < 0.7
+    i, j = sorted(int(v) for v in rng.choice(m, 2, replace=False))
+    valid[[i, j]] = True
+    top = np.float32(np.abs(score).max() + 1)
+    if kind == "near_tie":        # one ulp apart: quantizing makes a tie
+        score[i], score[j] = top, np.nextafter(top, np.float32(np.inf))
+    elif kind == "exact_tie":
+        score[i] = score[j] = top
+    elif kind == "nan":
+        score[[0, i, j]] = np.nan
+        valid[0] = False
+    elif kind == "signed_zero":
+        score = -np.abs(score) - 1
+        score[i], score[j] = np.float32(-0.0), np.float32(0.0)
+    elif kind == "inf":
+        score[[i, j]] = np.inf
+        score[(j + 1) % m] = -np.inf
+    elif kind == "all_invalid":
+        valid[:] = False
+    elif kind == "all_neg_inf":
+        score[:] = -np.inf
+    return score, valid
+
+
+def _finding_keys(findings_by_name):
+    return {name: sorted(f.key() for f in found)
+            for name, found in findings_by_name.items()}
+
+
+def phase_analysis(device):
+    """masked_argmax against its plain version (both variants, every edge
+    case, at M = 16, 384, 4096 and 1 << 20: the index exactly), its times,
+    then the gate: ``repro_torch.analysis``'s entry point with
+    ``--all --device cuda`` (its launch count read around it), its
+    findings held equal to the CPU's, and the command line itself."""
+    import torch
+    from repro_torch.analysis import __main__ as gate
+    from repro_torch.analysis import fixtures, registry
+    from repro_torch.kernels.masked_argmax import kernel
+    from repro_torch.kernels.masked_argmax.kernel import masked_argmax_cuda
+    from repro_torch.kernels.masked_argmax.ref import masked_argmax_ref
+
+    t0 = time.perf_counter()
+    rows, failures = [], []
+    for m in ARGMAX_WIDTHS:
+        err = 0
+        for n, kind in enumerate(ARGMAX_KINDS):
+            score, valid = _argmax_case(kind, m, seed=m + n)
+            st = torch.as_tensor(score, device=device)
+            vt = torch.as_tensor(valid, device=device)
+            for quantize in (True, False):
+                got = int(masked_argmax_cuda(st, vt, quantize=quantize)[0])
+                want = int(masked_argmax_ref(st, vt, quantize=quantize)[0])
+                cpu = int(masked_argmax_ref(torch.as_tensor(score),
+                                            torch.as_tensor(valid),
+                                            quantize=quantize)[0])
+                err = max(err, abs(got - want))
+                if not got == want == cpu:
+                    failures.append(f"M={m} {kind} quantize={quantize}: "
+                                    f"kernel {got}, plain {want}, plain on "
+                                    f"the CPU {cpu}")
+        score, valid = _argmax_case("random", m, seed=m)
+        st = torch.as_tensor(score, device=device)
+        vt = torch.as_tensor(valid, device=device)
+        nbytes = 5 * m + 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        for quantize in (True, False):
+            cargs, _, keep = kernel.prepare(st, vt, quantize=quantize)
+            ms = _launch_ms(lambda: kernel.launch(cargs), n=200)
+            plain_ms = _median_ms(lambda: masked_argmax_ref(
+                st, vt, quantize=quantize))
+            del keep
+            rows.append(dict(kernel="masked_argmax", M=m, quantize=quantize,
+                             case=f"M={m} quantize={quantize}", ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by="bytes", library_ms=None,
+                             max_abs_err=float(err)))
+            _line("analysis", kernel="masked_argmax", M=m,
+                  quantize=quantize, ms=f"{ms:.5f}",
+                  plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.3e}",
+                  bound_by="bytes", bytes=nbytes)
+    _line("analysis", cases=len(ARGMAX_WIDTHS) * len(ARGMAX_KINDS) * 2,
+          index_equal=not failures)
+    for f in failures:
+        print(f"[analysis]   {f}", flush=True)
+
+    # The gate, through its entry point, with the kernel's count around it.
+    masked_argmax_cuda.launches = 0
+    g0 = time.perf_counter()
+    rc = gate.main(["--all", "--device", "cuda"])
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - g0
+    launches = masked_argmax_cuda.launches
+    _line("analysis", gate_rc=rc, gate_s=f"{gate_s:.1f}",
+          masked_argmax_launches=launches)
+    if rc != 0:
+        failures.append(f"the gate failed on the card (exit {rc})")
+    if launches == 0:
+        failures.append("the gate launched no masked_argmax kernel")
+
+    # The same findings on both devices, fixture by fixture and program by
+    # program (the paths differ by the kernel replays, ``kernel:<op>``).
+    same = {}
+    for tag, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        found = fixtures.run_fixtures(dev)
+        found.update({spec.name: registry.audit_program(spec, dev)
+                      for spec in registry.registered_programs()})
+        same[tag] = _finding_keys(found)
+    differ = sorted(k for k in same["cpu"]
+                    if same["cpu"][k] != same["card"].get(k))
+    _line("analysis", programs=len(same["cpu"]), same_findings=not differ,
+          findings_on_card=sum(len(v) for v in same["card"].values()))
+    if differ:
+        failures.append(f"card and CPU findings differ in {differ}")
+
+    # The command line, as a user runs it.
+    c0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--all", "--device",
+         "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    tail = cli.stdout.strip().splitlines()[-3:]
+    _line("analysis", cli_rc=cli.returncode,
+          cli_s=f"{time.perf_counter() - c0:.1f}", cli_tail=json.dumps(tail))
+    if cli.returncode != 0 or "determinism gate: OK" not in cli.stdout:
+        failures.append(f"python -m repro_torch.analysis --all --device cuda"
+                        f" exited {cli.returncode}: {cli.stdout[-1500:]} "
+                        f"{cli.stderr[-1500:]}")
+    _line("analysis", phase_s=f"{time.perf_counter() - t0:.1f}")
+    if failures:
+        raise AssertionError(f"phase analysis: {failures[:3]}")
+    return rows, launches
+
+
 def _all_counters():
     from repro_torch.kernels.select_step.kernel import select_step_cuda
     from repro_torch.kernels.ssm_scan.kernel import ssm_scan_cuda
@@ -1282,6 +1439,9 @@ OP_SUMMARY = {
                          "src/repro/kernels/decode_attention/kernel.py:88"),
     "ssm_scan": ("layer 0, float32", "",
                  "src/repro/kernels/ssm_scan/kernel.py:83"),
+    # The fixture's width, quantized: the launch the gate makes.
+    "masked_argmax": ("M=16 quantize=True", "",
+                      "src/repro/analysis/fixtures.py:101"),
 }
 
 
@@ -1342,11 +1502,13 @@ def main() -> int:
     op_rows, op_launches = phase_ops(device, tf_job)
     launches = phase_main(device, tf_job)
     phase_golden(device)
+    analysis_rows, argmax_launches = phase_analysis(device)
     model_rows, model_launches, _serving = phase_model(device)
     # Each kernel's launches come from the path that runs it: tree_predict
     # and gh_ei from the ops drive, the model kernels from the serving run.
     op_launches.update({k: model_launches[k] for k in
                         ("flash_attention", "decode_attention", "ssm_scan")})
+    op_launches["masked_argmax"] = argmax_launches
     # The depth-2 launch, the one that moves the most bytes, stands for the
     # kernel in the summary line.
     row = next(r for r in rows if r["case"].startswith("d2_")
@@ -1359,7 +1521,7 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": {"S": row["S"], "M": row["M"]},
-    }] + _op_summary(op_rows + model_rows, op_launches)
+    }] + _op_summary(op_rows + model_rows + analysis_rows, op_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

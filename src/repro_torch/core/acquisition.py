@@ -218,7 +218,11 @@ def expected_improvement(mu, sigma, y_star, mu_parts=None) -> torch.Tensor:
     d = _minus_mu(y_star, mu, mu_parts)
     z = ftz(d / s)
     out = ftz(ftz(no_contract(d * _Phi(z))) + ftz(no_contract(s * _phi(z))))
-    return torch.maximum(out, torch.zeros_like(out))
+    # max(out, 0) as the reference's backend takes it: a tie (-0.0 against
+    # +0.0, after a subnormal sum flushed to -0.0) returns +0.0, where
+    # torch.maximum would return -0.0; NaN propagates.
+    zero = torch.zeros_like(out)
+    return torch.where((out > zero) | (out != out), out, zero)
 
 
 def prob_leq(mu, sigma, bound, mu_parts=None) -> torch.Tensor:
@@ -301,9 +305,16 @@ def gauss_hermite(k: int) -> tuple[np.ndarray, np.ndarray]:
 _SQRT2 = _f32(np.sqrt(2.0))
 
 
-def gh_cost_nodes(mu, sigma, xi) -> torch.Tensor:
-    """Speculated cost values ``mu + sqrt(2)·sigma·xi_i``; broadcasts over xi."""
+def gh_cost_nodes(mu, sigma, xi, mu_parts=None) -> torch.Tensor:
+    """Speculated cost values ``mu + sqrt(2)·sigma·xi_i``; broadcasts over xi.
+
+    ``mu_parts = (acc, inv)`` when ``mu`` is the raw forest mean ``acc·inv``
+    computed in the same program: the reference's backend then contracts
+    that product into the node's addition (one rounding, :func:`fma`)."""
     step = ftz(no_contract(ftz(ftz(_SQRT2 * ftz(sigma[..., None])) * xi)))
+    if mu_parts is not None:
+        acc, inv = mu_parts
+        return fma(acc[..., None], inv, step)
     return ftz(ftz(mu[..., None]) + step)
 
 

@@ -186,6 +186,12 @@ def _fit_batch_frozen(root_assign, root_preds, boot_w, sel_b, c_b, floor):
 # --------------------------------------------------------------------------- #
 # The selector
 # --------------------------------------------------------------------------- #
+def _at(a, i):
+    """``a[i]`` for a 0-d index tensor ``i``, without reading ``i`` on the
+    host (``a[i]`` would: a device-host sync on the card)."""
+    return a[i.reshape(1)][0]
+
+
 def _where(c, a, b):
     return torch.where(c, a, torch.as_tensor(b, dtype=a.dtype,
                                              device=a.device))
@@ -297,18 +303,23 @@ def _policy(s: Settings):
     raise ValueError(f"unknown policy {s.policy!r}")
 
 
-def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, reward, cost,
-                    gamma0, *, points, left, thresholds, u, t_max, floor,
-                    s: Settings, frozen_ctx, cens, valid):
+def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, y_nodes,
+                    reward, cost, gamma0, *, points, left, thresholds, u,
+                    t_max, floor, s: Settings, frozen_ctx, cens, valid):
     """Speculate every root's G-H nodes, recurse, and return the root
-    reward/path-cost and the pick (shared by the fused and unfused roots)."""
+    reward/path-cost and the pick (shared by the fused and unfused roots).
+
+    ``y_nodes`` are the nodes the children's speculated y take, ``c_nodes``
+    the ones their budget and incumbent take.  The reference's compiled
+    root contracts the forest mean's product into the former
+    (``gh_cost_nodes``' ``mu_parts``; ROADMAP C2)."""
     m_dim = y.shape[0]
     k = s.k_gh
     _, w = acq.gauss_hermite(k)
     eye = torch.eye(m_dim, dtype=torch.bool, device=y.device)
     if valid is not None:
         eye = eye & valid[None, :]
-    y1 = torch.where(eye[:, None, :], c_nodes[:, :, None], y[None, None, :])
+    y1 = torch.where(eye[:, None, :], y_nodes[:, :, None], y[None, None, :])
     m1 = (obs[None, :] | eye)[:, None, :].expand(m_dim, k, m_dim)
     beta1 = ftz(beta - c_nodes)
     feas1 = c_nodes <= ftz(t_max * u)[:, None]
@@ -372,14 +383,15 @@ def _select_next_fused(key, y, obs_mask, beta, points, left, thresholds, u,
     def finish(sel, valid_flag):
         if s.timeout:
             diagnostics["timeout"] = acq.timeout_cap(
-                best_feas, sig0[sel], u[sel], beta, t_max, s.timeout_kappa,
-                s.timeout_tmax_mult)
+                best_feas, _at(sig0, sel), _at(u, sel), beta, t_max,
+                s.timeout_kappa, s.timeout_tmax_mult)
         return sel, valid_flag, diagnostics
 
     if not lookahead:
         return finish(sel0, has0)
     sel, reward, cost = _lookahead_tail(
-        k_path, y, obs, beta, best_feas, out[7][0], eic0, mu0, cand0,
+        k_path, y, obs, beta, best_feas, out[7][0], out[8][0], eic0, mu0,
+        cand0,
         points=points, left=left, thresholds=thresholds, u=u, t_max=t_max,
         floor=floor, s=s, frozen_ctx=None, cens=None if cens is None
         else cens.to(torch.bool), valid=valid)
@@ -420,8 +432,8 @@ def _select_next_impl(key, y, obs_mask, beta, points, left, thresholds, u,
     def finish(sel, valid_flag):
         if s.timeout:
             diagnostics["timeout"] = acq.timeout_cap(
-                best_feas, sig0[sel], u[sel], beta, t_max, s.timeout_kappa,
-                s.timeout_tmax_mult)
+                best_feas, _at(sig0, sel), _at(u, sel), beta, t_max,
+                s.timeout_kappa, s.timeout_tmax_mult)
         return sel, valid_flag, diagnostics
 
     if s.policy == "bo":
@@ -434,9 +446,9 @@ def _select_next_impl(key, y, obs_mask, beta, points, left, thresholds, u,
     if s.policy != "lynceus":
         raise ValueError(f"unknown policy {s.policy!r}")
 
-    c_nodes = acq.gh_cost_nodes(
-        mu0, sig0, torch.as_tensor(acq.gauss_hermite(s.k_gh)[0],
-                                   device=y.device))            # [M, K]
+    xi = torch.as_tensor(acq.gauss_hermite(s.k_gh)[0], device=y.device)
+    c_nodes = acq.gh_cost_nodes(mu0, sig0, xi)                    # [M, K]
+    y_nodes = acq.gh_cost_nodes(mu0, sig0, xi, parts)
     frozen_ctx = None
     if s.refit == "frozen":
         # Leaf weights approximated as uniform over the valid points.
@@ -445,9 +457,9 @@ def _select_next_impl(key, y, obs_mask, beta, points, left, thresholds, u,
         roots = torch.arange(m_dim, device=y.device)
         frozen_ctx = (assign, preds, boot_w,
                       roots[:, None].expand(m_dim, s.k_gh).reshape(-1),
-                      c_nodes.reshape(-1))
+                      y_nodes.reshape(-1))
     sel, reward, cost = _lookahead_tail(
-        k_path, y, obs, beta, best_feas, c_nodes, eic0, mu0, gamma0,
+        k_path, y, obs, beta, best_feas, c_nodes, y_nodes, eic0, mu0, gamma0,
         points=points, left=left, thresholds=thresholds, u=u, t_max=t_max,
         floor=floor, s=s, frozen_ctx=frozen_ctx, cens=None if cens is None
         else cens.to(torch.bool), valid=valid)

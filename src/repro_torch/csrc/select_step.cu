@@ -25,8 +25,9 @@
 //
 // Arithmetic contract (what makes the kernel equal its plain version):
 // built with -fmad=false (no product contracted into an FMA but the
-// explicit __fmaf_rn of minus_mu, which reproduces the one contraction the
-// reference's compiled program makes), IEEE
+// explicit __fmaf_rn of minus_mu and of the root nodes, which reproduce
+// the contractions of the forest mean that the reference's compiled
+// program makes), IEEE
 // division and square root (-prec-div=true -prec-sqrt=true, never
 // --use_fast_math) and -ftz=true (float32 subnormals flush to zero, as the
 // reference's XLA CPU backend computes and the plain version emulates).
@@ -153,7 +154,7 @@ struct Params {
   int S, B, D, W, L, M, F, K;
   int score_ratio, use_budget, emit_full, want_nodes;
   float* mu; float* sigma; float* eic; float* ystar; uint8_t* cand;
-  int* sel; uint8_t* has; float* nodes;
+  int* sel; uint8_t* has; float* nodes; float* nodes_y;
   float* eic_sel; float* mu_sel; float* sig_sel;
 };
 
@@ -282,9 +283,16 @@ select_step_kernel(Params p) {
       p.eic[ro + m] = eic;
       p.cand[ro + m] = cand ? 1 : 0;
       if (p.want_nodes) {
+        // nodes: mu + step·xi.  nodes_y, the children's speculated y: the
+        // same with the forest mean's product contracted into the addition
+        // where mu is the raw mean (as minus_mu does).
         const float step = kSqrt2 * sigma;
-        for (int k = 0; k < p.K; ++k)
-          p.nodes[(ro + m) * p.K + k] = mu + nc(step * p.xi[k]);
+        for (int k = 0; k < p.K; ++k) {
+          const float d = nc(step * p.xi[k]);
+          p.nodes[(ro + m) * p.K + k] = mu + d;
+          p.nodes_y[(ro + m) * p.K + k] =
+              contract ? __fmaf_rn(acc, inv_b, d) : mu + d;
+        }
       }
     }
   }
@@ -350,12 +358,12 @@ extern "C" int select_step_launch(
     float cens_rel, int S, int B, int D, int W, int L, int M, int F, int K,
     int score_ratio, int use_budget, int emit_full, int want_nodes,
     float* mu, float* sigma, float* eic, float* ystar, uint8_t* cand,
-    int* sel, uint8_t* has, float* nodes, float* eic_sel, float* mu_sel,
-    float* sig_sel, void* stream) {
+    int* sel, uint8_t* has, float* nodes, float* nodes_y, float* eic_sel,
+    float* mu_sel, float* sig_sel, void* stream) {
   Params p{feat, thr, leaf, y, obs, cens, beta, bf, points, u, valid, xi,
            scal, conf_q, cens_rel, S, B, D, W, L, M, F, K, score_ratio,
            use_budget, emit_full, want_nodes, mu, sigma, eic, ystar, cand,
-           sel, has, nodes, eic_sel, mu_sel, sig_sel};
+           sel, has, nodes, nodes_y, eic_sel, mu_sel, sig_sel};
   const size_t smem = select_step_smem_bytes(B, D, W, L, M, F);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -8,6 +8,8 @@ version — the port of ``repro.kernels``.
   flash_attention  — train/prefill attention (causal/window/softcap, GQA)
   decode_attention — single-token attention over a ring KV cache
   ssm_scan         — chunked SSD / gated linear recurrence (Mamba2)
+  masked_argmax    — masked, quantized argmax (the determinism gate's
+                     kernel fixture)
 
 Each op sends CPU tensors to its plain version and CUDA tensors to its
 kernel (``kernels.dispatch``); the kernels are built from ``csrc/*.cu`` at
@@ -21,9 +23,11 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.dispatch import resolve_mode
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.gh_ei.ops import gh_ei
+from repro_torch.kernels.masked_argmax.ops import masked_argmax
 from repro_torch.kernels.select_step.ops import select_step
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.tree_predict.ops import tree_predict
 
 __all__ = ["flash_attention", "decode_attention", "ssm_scan",
-           "tree_predict", "gh_ei", "select_step", "resolve_mode"]
+           "tree_predict", "gh_ei", "select_step", "masked_argmax",
+           "resolve_mode"]

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from repro_torch.kernels.dispatch import resolve_mode
+from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -19,6 +19,9 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
     """
     del bq, bk
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    plain = lambda: _ref.attention_ref(q, k, v, **kw)
     if resolve_mode(force, q.device, op="flash_attention") == "ref":
-        return _ref.attention_ref(q, k, v, **kw)
-    return _kernel.flash_attention_cuda(q, k, v, **kw)
+        return plain()
+    out = _kernel.flash_attention_cuda(q, k, v, **kw)
+    declare_kernel("flash_attention", out, plain)
+    return out

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from repro_torch.core import acquisition as acq
-from repro_torch.kernels.dispatch import resolve_mode
+from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.gh_ei import kernel as _kernel
 from repro_torch.kernels.gh_ei import ref as _ref
 
@@ -25,8 +25,11 @@ def gh_ei(mu, sigma, u, y_star, t_max, beta, xi, *, cens=None, y_cens=None,
     if cens is not None:
         mu, sigma = acq.censored_adjust(mu, sigma, y_cens, cens,
                                         cens_sigma_rel)
+    plain = lambda: _ref.gh_ei_ref(mu, sigma, u, y_star, t_max, beta, xi,
+                                   conf=conf)
     if resolve_mode(force, mu.device, op="gh_ei") == "ref":
-        return _ref.gh_ei_ref(mu, sigma, u, y_star, t_max, beta, xi,
-                              conf=conf)
-    return _kernel.gh_ei_cuda(mu, sigma, u, y_star, t_max, beta, xi,
-                              conf=conf)
+        return plain()
+    out = _kernel.gh_ei_cuda(mu, sigma, u, y_star, t_max, beta, xi,
+                             conf=conf)
+    declare_kernel("gh_ei", out, plain)
+    return out

@@ -24,7 +24,7 @@ _OP = "select_step"
 def _fn():
     return capi.entry(_OP, "select_step_launch",
                       [capi.P] * 13 + [capi.F, capi.F] + [capi.I] * 12
-                      + [capi.P] * 11 + [capi.P])
+                      + [capi.P] * 12 + [capi.P])
 
 
 def _check(name, t, dtype, shape, device):
@@ -78,7 +78,7 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
     f32 = dict(dtype=torch.float32, device=dev)
     sel = torch.empty((s_dim,), dtype=torch.int32, device=dev)
     has = torch.empty((s_dim,), dtype=torch.bool, device=dev)
-    mu = sig = eic = ystar = cand = nodes = None
+    mu = sig = eic = ystar = cand = nodes = nodes_y = None
     eic_sel = mu_sel = sig_sel = None
     if emit_full:
         mu = torch.empty((s_dim, m_dim), **f32)
@@ -88,6 +88,7 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
         cand = torch.empty((s_dim, m_dim), dtype=torch.bool, device=dev)
         if want_nodes:
             nodes = torch.empty((s_dim, m_dim, k_gh), **f32)
+            nodes_y = torch.empty((s_dim, m_dim, k_gh), **f32)
         out = (mu, sig, eic, ystar, cand, sel, has)
     else:
         eic_sel = torch.empty((s_dim,), **f32)
@@ -96,11 +97,11 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
         if want_nodes:
             nodes = torch.empty((s_dim, k_gh), **f32)
         out = (sel, has, eic_sel, mu_sel, sig_sel)
-    out += (nodes,) if want_nodes else ()
+    out += tuple(a for a in (nodes, nodes_y) if a is not None)
     inputs = (feat, thr, leaf, y, obs, cens, beta, bf, points, u, valid,
               xi if want_nodes else None, scal)
-    outputs = (mu, sig, eic, ystar, cand, sel, has, nodes, eic_sel, mu_sel,
-               sig_sel)
+    outputs = (mu, sig, eic, ystar, cand, sel, has, nodes, nodes_y, eic_sel,
+               mu_sel, sig_sel)
     args = (*map(capi.ptr, inputs),
             float(np.float32(normal_quantile(float(conf)))),
             float(np.float32(cens_rel)),

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from repro_torch.kernels.dispatch import resolve_mode
+from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.select_step import kernel as _kernel
 from repro_torch.kernels.select_step import ref as _ref
 
@@ -19,10 +19,10 @@ def select_step(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
     kw = dict(conf=conf, cens_rel=cens_rel, score_mode=score_mode,
               use_budget=use_budget, emit_full=emit_full,
               want_nodes=want_nodes)
+    args = (feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor, xi)
+    plain = lambda: _ref.select_step_ref(*args, cens=cens, valid=valid, **kw)
     if resolve_mode(force, y.device, op="select_step") == "ref":
-        return _ref.select_step_ref(feat, thr, leaf, y, obs, beta, bf, points, u,
-                                    t_max, floor, xi, cens=cens,
-                                    valid=valid, **kw)
-    return _kernel.select_step_cuda(feat, thr, leaf, y, obs, beta, bf, points, u,
-                                    t_max, floor, xi, cens=cens,
-                                    valid=valid, **kw)
+        return plain()
+    out = _kernel.select_step_cuda(*args, cens=cens, valid=valid, **kw)
+    declare_kernel("select_step", out, plain)
+    return out

@@ -35,7 +35,11 @@ def select_step_ref(feat, thr, leaf, y, obs, beta, bf, points, u, t_max,
 
     Returns ``emit_full=False``: (sel i32, has_cand bool, eic_sel, mu_sel,
     sig_sel[, nodes [S, K]]); ``emit_full=True``: (mu, sigma, eic [S, M],
-    ystar [S], cand [S, M] bool, sel [S], has_cand [S][, nodes [S, M, K]]).
+    ystar [S], cand [S, M] bool, sel [S], has_cand [S][, nodes [S, M, K],
+    nodes_y [S, M, K]]).  ``nodes_y`` are the nodes the children's
+    speculated y take: the forest mean's product contracted into the
+    node's addition where the mean is raw (no censoring), as the
+    reference's compiled selector computes its root (ROADMAP C2).
     """
     if want_nodes and xi is None:
         raise ValueError("want_nodes=True requires xi")
@@ -74,7 +78,8 @@ def select_step_ref(feat, thr, leaf, y, obs, beta, bf, points, u, t_max,
     if emit_full:
         out = (mu, sigma, eic, ystar, cand, sel, has_cand)
         if want_nodes:
-            out += (acq.gh_cost_nodes(mu, sigma, f32(xi)),)
+            out += (acq.gh_cost_nodes(mu, sigma, f32(xi)),
+                    acq.gh_cost_nodes(mu, sigma, f32(xi), parts))
         return out
     take = lambda a: a.gather(1, sel[:, None].to(torch.int64))[:, 0]
     eic_sel, mu_sel, sig_sel = take(eic), take(mu), take(sigma)

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from repro_torch.kernels.dispatch import resolve_mode
+from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.ssm_scan import kernel as _kernel
 from repro_torch.kernels.ssm_scan import ref as _ref
 
@@ -19,9 +19,12 @@ def linear_scan(k, v, q, log_decay, gate, *, chunk: int,
     plain version for CPU tensors (see ``kernels.dispatch``).
     """
     kw = dict(chunk=chunk, initial_state=initial_state)
+    plain = lambda: _ref.linear_scan_ref(k, v, q, log_decay, gate, **kw)
     if resolve_mode(force, k.device, op="ssm_scan") == "ref":
-        return _ref.linear_scan_ref(k, v, q, log_decay, gate, **kw)
-    return _kernel.ssm_scan_cuda(k, v, q, log_decay, gate, **kw)
+        return plain()
+    out = _kernel.ssm_scan_cuda(k, v, q, log_decay, gate, **kw)
+    declare_kernel("ssm_scan", out, plain)
+    return out
 
 
 def ssm_scan(k, v, q, log_decay, gate, *, chunk: int = 256,

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import resolve_mode
+from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.tree_predict import kernel as _kernel
 from repro_torch.kernels.tree_predict import ref as _ref
 
@@ -21,8 +21,11 @@ def tree_predict(x, feat, thr, leaf, *, sigma_floor=1e-6, bm=256,
     """
     del bm
     x = x.to(torch.float32).contiguous()
+    plain = lambda: _ref.tree_predict_ref(x, feat, thr, leaf,
+                                          sigma_floor=sigma_floor)
     if resolve_mode(force, x.device, op="tree_predict") == "ref":
-        return _ref.tree_predict_ref(x, feat, thr, leaf,
-                                     sigma_floor=sigma_floor)
-    return _kernel.tree_predict_cuda(x, feat, thr, leaf,
-                                     sigma_floor=sigma_floor)
+        return plain()
+    out = _kernel.tree_predict_cuda(x, feat, thr, leaf,
+                                    sigma_floor=sigma_floor)
+    declare_kernel("tree_predict", out, plain)
+    return out

@@ -124,3 +124,101 @@ def test_batch_selector_lanes_are_independent():
         assert (int(i), bool(v)) == (int(idx[r]), bool(valid[r]))
         for k in d:
             assert d[k].numpy().tobytes() == diag[k][r].numpy().tobytes()
+
+
+# Inputs on which the port once differed from the JAX package (ROADMAP C2):
+# (job seed, lookahead, padded, observation seed, factor on the first
+# observed y, key, budget factor).  The first is the input that showed C2:
+# the children's speculated y take the root node with the forest mean's
+# product contracted, as the reference's compiled root computes it.  The
+# second flushed EI's subnormal sum to -0.0, which max(., 0) must return
+# as +0.0; the third is the C2 cause on a padded space.
+PINNED = [(1, 2, False, 0, 0.6, 19, 3.0),
+          (0, 1, False, 1, 0.6, 2, 2.0),
+          (4, 2, True, 1, 0.6, 0, 2.0)]
+
+
+@pytest.mark.parametrize("jseed,la,padded,oseed,scale,key,bud", PINNED)
+def test_pinned_inputs_match_jax(jseed, la, padded, oseed, scale, key, bud):
+    job = _job(jseed)
+    space = (job.space.pad_to(GeometryBucket(m=32, f=3, t=6)) if padded
+             else job.space)
+    m = space.n_points
+    u = np.ones(m, np.float32)
+    u[:job.space.n_points] = job.unit_price
+    y, mask, _ = _observations(job, m, seed=oseed)
+    y[np.flatnonzero(mask)[0]] *= np.float32(scale)
+    beta = np.float32(job.budget(bud))
+    kw = dict(policy="lynceus", la=la, k_gh=2, n_trees=3, depth=3)
+    jsel = jax_make_selector(space, u, job.t_max,
+                             JSettings(**kw, fused_selector="ref"))
+    want = _as_numpy(jsel(jax.random.PRNGKey(key), y, mask, beta))
+    tspace = _port_space(space)
+    for mode in ("auto", "ref"):
+        tsel = make_selector(tspace, u, job.t_max,
+                             Settings(**kw, fused_selector=mode),
+                             device="cpu")
+        got = _as_numpy(tsel(prng.PRNGKey(key), y, mask, beta))
+        assert got[:2] == want[:2], mode
+        assert sorted(got[2]) == sorted(want[2]), mode
+        for k, v in want[2].items():
+            assert v.tobytes() == got[2][k].tobytes(), (mode, k)
+
+
+def _survey_part(args):
+    """Mismatching selections of one (job seed, la, padded) geometry."""
+    jseed, la, padded = args
+    job = _job(jseed)
+    space = (job.space.pad_to(GeometryBucket(m=32, f=3, t=6)) if padded
+             else job.space)
+    m = space.n_points
+    u = np.ones(m, np.float32)
+    u[:job.space.n_points] = job.unit_price
+    kw = dict(policy="lynceus", la=la, k_gh=2, n_trees=3, depth=3)
+    jsel = jax_make_selector(space, u, job.t_max,
+                             JSettings(**kw, fused_selector="ref"))
+    tspace = _port_space(space)
+    tsels = {mode: make_selector(tspace, u, job.t_max,
+                                 Settings(**kw, fused_selector=mode),
+                                 device="cpu") for mode in ("auto", "ref")}
+    bad = []
+    for oseed in range(3):
+        for scale in (1.0, 0.6):
+            y, mask, _ = _observations(job, m, seed=oseed)
+            y[np.flatnonzero(mask)[0]] *= np.float32(scale)
+            for key in range(8):
+                for bud in (2.0, 3.0):
+                    beta = np.float32(job.budget(bud))
+                    want = _as_numpy(jsel(jax.random.PRNGKey(key), y, mask,
+                                          beta))
+                    for mode, tsel in tsels.items():
+                        got = _as_numpy(tsel(prng.PRNGKey(key), y, mask,
+                                             beta))
+                        if got[:2] != want[:2] or any(
+                                v.tobytes() != got[2][k].tobytes()
+                                for k, v in want[2].items()):
+                            bad.append((jseed, la, padded, oseed, scale, key,
+                                        bud, mode))
+    return bad
+
+
+if __name__ == "__main__":
+    # The selection survey behind ROADMAP C2/C4: 2,304 selections (jobs
+    # 0-5, la 1 and 2, native and padded, 3 observation seeds, the first
+    # observed y scaled by 1 and 0.6, keys 0-7, budgets 2 and 3), each
+    # through both port paths against JAX; prints the mismatches.
+    #   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_lookahead.py
+    import multiprocessing
+
+    grid = [(j, la, p) for j in range(6) for la in (1, 2)
+            for p in (False, True)]
+    with multiprocessing.get_context("spawn").Pool(4) as pool:
+        found = [b for part in pool.map(_survey_part, grid) for b in part]
+    by_mode = {m: {b[:7] for b in found if b[7] == m} for m in ("auto",
+                                                                 "ref")}
+    sels = by_mode["auto"] | by_mode["ref"]
+    for b in sorted(found):
+        print("mismatch", b)
+    print(f"{len(sels)} of {len(grid) * 3 * 2 * 8 * 2} selections differ "
+          f"from JAX ({sum(b[2] for b in sels)} padded); the port's two "
+          f"paths disagree on {len(by_mode['auto'] ^ by_mode['ref'])}")

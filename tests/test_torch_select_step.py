@@ -82,12 +82,26 @@ def test_plain_version_matches_jax_ref_and_interpret(emit_full, want_nodes,
     for force in ("ref", "interpret"):
         want = jax_select_step(*jargs, T_MAX, FLOOR, jkw["xi"], jkw["cens"],
                                jkw["valid"], force=force, **kw)
-        assert len(want) == len(got)
+        # The root sweep also gives nodes_y, which the JAX op has not.
+        assert len(want) + int(emit_full and want_nodes) == len(got)
         for i, (a, b) in enumerate(zip(want, got)):
             a = np.asarray(a)
             b = b.numpy()
             assert a.dtype == b.dtype and a.shape == b.shape, (force, i)
             assert a.tobytes() == b.tobytes(), (force, i)
+    if emit_full and want_nodes:
+        # nodes_y contracts the forest mean's product into the node's
+        # addition: it skips the mean's rounding (half an ulp of mu) and
+        # rounds once, so it lies within that and an ulp of the node; a
+        # censored sweep's mean is a select and takes no contraction.
+        mu, nodes, nodes_y = (got[i].numpy() for i in (0, 7, 8))
+        if with_cens:
+            assert nodes_y.tobytes() == nodes.tobytes()
+        else:
+            assert (nodes_y != nodes).any()
+            bound = np.spacing(np.abs(mu))[..., None] + np.spacing(
+                np.abs(nodes))
+            assert np.all(np.abs(nodes_y - nodes) <= bound)
 
 
 def test_budget_off_matches_jax():
