@@ -7,22 +7,26 @@ Phases, one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
 2. build: compiles every CUDA kernel (one ``nvcc`` per source, all
-   started together);
+   started together) and fails if ``-Xptxas -v`` shows a spill in the
+   kernels whose register budget is their design (``NO_SPILL``);
 3. kernel: the select_step kernel against its plain PyTorch version on
    the card, bitwise, at the shapes the main path gives it (tf-cnn, M =
    384), with its time, its plain version's time and its bound;
 4. ops: the kernel entry point ``repro_torch.kernels`` — tree_predict and
    gh_ei on the forests and root posterior of a real tf-cnn selection
    step, flash_attention on a gemma2-9b prefill (S = T = 8192, local,
-   global, causal and non-causal, bf16 and f32), decode_attention on
-   gemma2-9b caches at B = 8 (global T = 8192 and local ring T = 4096,
-   each full and filling).
+   global, causal and non-causal, bf16 and f32) and bf16 edge cases of
+   the tensor-core kernel (S and T off the tiles, D 112 and 100, MQA),
+   decode_attention on gemma2-9b caches at B = 8 (global T = 8192 and
+   local ring T = 4096, each full and filling; splits whose slots are all
+   dead, every slot dead, a ragged last tile) and at zamba2-7b's shape.
    Each case is driven through the op once with the launch counts at 0,
    then held against the plain version within its tolerance and timed
    beside its plain version, its bound and, where one PyTorch call
    computes the same function, that call (``library_ms``: SDPA, or a
    compiled ``flex_attention`` for the softcapped and windowed prefills,
-   with its max abs error against the plain version);
+   with its max abs error against the plain version, and ``vs_library``,
+   the kernel's time over the library call's);
 5. main path: ``run_many`` on tf-cnn at the paper's defaults, timeout off
    and on, through the kernel (launch counts read around the run), then
    the same runs through the plain path (``fused_selector="ref"``) — the
@@ -332,9 +336,11 @@ def phase_kernel(device, tf_job):
 GEMMA2 = dict(n_heads=16, n_kv_heads=8, head_dim=256, window=4096,
               softcap=50.0, scale=256 ** -0.5)
 PREFILL_S = 8192          # twice the window: the local layers' window binds
-# bf16 (atol, rtol): kernel and plain version both widen to f32 and differ
-# by f32 summation order, then each rounds to bf16, so they may land one
-# bf16 ulp apart (at most 2^-7·|want|); the atol covers outputs near 0.
+# bf16 (atol, rtol): both sides take q·k in float32 (a bf16 product is
+# exact there) and round the output to bf16, so they may land one bf16 ulp
+# apart (at most 2^-7·|want|).  The flash kernel also rounds p to bf16
+# before P·V on the tensor cores: about 2^-9·|p∘v| more per output, ~2e-5
+# at these statistics; the atol covers that and outputs near 0.
 BF16_TOL = (1e-3, 1e-2)
 DECODE_B = 8
 # (label, T, window, pos): the global layers' cache and the local layers'
@@ -346,7 +352,33 @@ DECODE_CACHES = (("global cache T 8192, pos 8191", 8192, None, 8191),
                  ("global cache T 8192, pos 5000 (filling)", 8192, None,
                   5000),
                  ("local ring T 4096, window 4096, pos 3000 (filling)",
-                  4096, 4096, 3000))
+                  4096, 4096, 3000),
+                 # Edge cases of the split over T: splits whose slots are
+                 # all dead, and a ragged last tile.
+                 ("global cache T 8192, pos 10 (all-dead splits)", 8192,
+                  None, 10),
+                 ("cache T 1000 (ragged last tile), pos 1500 (rollover)",
+                  1000, None, 1500),
+                 ("global cache T 8192, pos -1 (every slot dead)", 8192,
+                  None, -1))
+# flash_attention edge cases of the tensor-core kernel, bf16: (label, H,
+# KH, S, T, D, causal, window, softcap).  S and T off the 64-row tiles,
+# head dims zero-padded in shared memory (112: zamba2-7b's; 100: not a
+# multiple of 8, so 8-byte copies), and MQA.
+FLASH_EDGES = (
+    ("ragged S = T = 1000, causal, window 300, softcap 50", 16, 8, 1000,
+     1000, 256, True, 300, 50.0),
+    ("cross S 200, T 1000, non-causal", 16, 8, 200, 1000, 256, False, None,
+     None),
+    ("D 112 (zamba2-7b heads), S = T = 1000, causal", 32, 32, 1000, 1000,
+     112, True, None, None),
+    ("D 100, S = T = 500, causal, softcap 30", 4, 2, 500, 500, 100, True,
+     None, 30.0),
+    ("MQA KH 1, D 128, S = T = 777, causal, window 200", 8, 1, 777, 777, 128,
+     True, 200, None))
+# zamba2-7b's decode shape (B 4, KH 32, G 1, D 112, f32) through the
+# [B, T, KH, D] ring cache's transposed view, as the model calls it.
+ZAMBA_DECODE = dict(b=4, kh=32, t=1032, d=112, pos=1031)
 
 
 class OpCase:
@@ -567,8 +599,39 @@ def ops_cases(device, tf_job):
                 plain_reps=3, extra=dict(B=1, H=h, KH=kh, S=s, T=s, D=d,
                                          live_pairs_per_head=pairs)))
 
+    for label, h_, kh_, s_, t_, d_, causal, window, softcap in FLASH_EDGES:
+        gq = torch.Generator(device=device).manual_seed(s_ + t_ + d_)
+        q = torch.randn((1, h_, s_, d_), generator=gq, device=device
+                        ).to(torch.bfloat16)
+        k = torch.randn((1, kh_, t_, d_), generator=gq, device=device
+                        ).to(torch.bfloat16)
+        v = torch.randn((1, kh_, t_, d_), generator=gq, device=device
+                        ).to(torch.bfloat16)
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  scale=d_ ** -0.5)
+        pairs = _live_pairs(s_, t_, causal, window)
+        lib = None
+        if softcap is None and window is None and (s_ == t_ or not causal):
+            lib = (lambda q=q, k=k, v=v, kw=kw: sdpa(
+                q, k, v, is_causal=kw["causal"], scale=kw["scale"],
+                enable_gqa=True))
+        cases.append(OpCase(
+            "flash_attention", f"{label}, bfloat16",
+            run=lambda q=q, k=k, v=v, kw=kw: kernels.flash_attention(
+                q, k, v, **kw),
+            plain=lambda q=q, k=k, v=v, kw=kw: kernels.flash_attention(
+                q, k, v, **kw, force="ref"),
+            prep=lambda q=q, k=k, v=v, kw=kw: fa.prepare(q, k, v, **kw),
+            launch=fa.launch, compare=_close(*BF16_TOL),
+            nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
+            ops=4 * d_ * h_ * pairs, peak=BF16_OPS_PER_S, library=lib,
+            reps=20, plain_reps=3, extra=dict(B=1, H=h_, KH=kh_, S=s_, T=t_,
+                                              D=d_,
+                                              live_pairs_per_head=pairs)))
+
     # decode_attention: gemma2-9b at B = 8, global cache and local ring.
     b = DECODE_B
+    n_sm = da._sm_count(device.index or 0)
     for dtype, tol, peak in ((torch.bfloat16, BF16_TOL, BF16_OPS_PER_S),
                              (torch.float32, (2e-5, 2e-5), FP32_OPS_PER_S)):
         for label, t, window, pos in DECODE_CACHES:
@@ -589,6 +652,14 @@ def ops_cases(device, tf_job):
             lib = (lambda q=q, k=k, v=v, m=mask: sdpa(
                 q[:, :, None], k, v, attn_mask=m, scale=GEMMA2["scale"],
                 enable_gqa=True)[:, :, 0])
+            # q and o, and the K/V rows of the live slots only; with no
+            # live slot the answer is the mean of V, which SDPA does not
+            # compute.
+            nbytes = 2 * _tensor_bytes(q) + _tensor_bytes(k, v) * live // t
+            ops = 4 * d * h * b * live
+            if live == 0:
+                lib, nbytes = None, 2 * _tensor_bytes(q) + _tensor_bytes(v)
+                ops = 2 * d * h * b * t
             cases.append(OpCase(
                 "decode_attention", f"{label}, {str(dtype)[6:]}",
                 run=lambda q=q, k=k, v=v, p=pos_t, kw=kw:
@@ -598,11 +669,37 @@ def ops_cases(device, tf_job):
                 prep=lambda q=q, k=k, v=v, p=pos_t, kw=kw: da.prepare(
                     q, k, v, p, **kw),
                 launch=da.launch, compare=_close(*tol),
-                # q and o, and the K/V rows of the live slots only.
-                nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v) * live // t,
-                ops=4 * d * h * b * live, peak=peak, library=lib, reps=20,
+                nbytes=nbytes, ops=ops, peak=peak, library=lib, reps=20,
                 plain_reps=5, extra=dict(B=b, H=h, KH=kh, T=t, D=d,
-                                         live_slots=live)))
+                                         live_slots=live,
+                                         splits=da.split_plan(
+                                             b, kh, t, n_sm)[0])))
+    z = ZAMBA_DECODE
+    gk = torch.Generator(device=device).manual_seed(z["t"])
+    q = torch.randn((z["b"], z["kh"], z["d"]), generator=gk, device=device)
+    k = torch.randn((z["b"], z["t"], z["kh"], z["d"]), generator=gk,
+                    device=device).transpose(1, 2)
+    v = torch.randn((z["b"], z["t"], z["kh"], z["d"]), generator=gk,
+                    device=device).transpose(1, 2)
+    pos_t = torch.tensor(z["pos"], dtype=torch.int32, device=device)
+    kw = dict(scale=z["d"] ** -0.5, window=None)
+    cases.append(OpCase(
+        "decode_attention",
+        f"B {z['b']}, KH {z['kh']}, G 1, D {z['d']}, T {z['t']} "
+        f"(zamba2-7b's decode shape), strided cache, float32",
+        run=lambda: kernels.decode_attention(q, k, v, pos_t, **kw),
+        plain=lambda: kernels.decode_attention(q, k, v, pos_t, **kw,
+                                               force="ref"),
+        prep=lambda: da.prepare(q, k, v, pos_t, **kw),
+        launch=da.launch, compare=_close(2e-5, 2e-5),
+        nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
+        ops=4 * z["d"] * z["kh"] * z["b"] * z["t"], peak=FP32_OPS_PER_S,
+        library=lambda: sdpa(q[:, :, None], k, v,
+                             scale=kw["scale"])[:, :, 0],
+        reps=20, plain_reps=5,
+        extra=dict(B=z["b"], H=z["kh"], KH=z["kh"], T=z["t"], D=z["d"],
+                   live_slots=z["t"], k_strides=list(k.stride()),
+                   splits=da.split_plan(z["b"], z["kh"], z["t"], n_sm)[0])))
     return cases
 
 
@@ -721,7 +818,9 @@ def phase_ops(device, tf_job):
                    bytes=case.nbytes, ops=case.ops,
                    launches=launches[case.kernel], **case.extra)
         rows.append(row)
-        _line("ops", **{k: _fmt(k, v) for k, v in row.items()},
+        row_line = dict(row, vs_library=None if lib_ms is None
+                        else round(ms / lib_ms, 4))
+        _line("ops", **{k: _fmt(k, v) for k, v in row_line.items()},
               within_tol=not bad)
         for b_ in bad:
             print(f"[ops]   {case.kernel} {case.name}: {b_}", flush=True)
@@ -1466,6 +1565,31 @@ def _op_summary(rows, launches):
     return out
 
 
+# Kernels whose register budget is part of their design: -Xptxas -v must
+# show no spill for any of their instantiations.
+NO_SPILL = ("flash_bf16_kernel", "decode_split_kernel",
+            "decode_combine_kernel")
+
+
+def _spills(logs):
+    """Spilled bytes (stores plus loads) of every function in the
+    ``-Xptxas -v`` output of ``logs``, by mangled name."""
+    import re
+    out, fn = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and fn is not None:
+                out[fn] = int(m.group(1)) + int(m.group(2))
+                fn = None
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1496,6 +1620,12 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "smem" in ln or "spill" in ln:
                 print(f"[build] {name}: {ln.strip()}", flush=True)
+    spilled = [f"{fn}: {n} bytes" for fn, n in _spills(logs).items()
+               if n and any(k in fn for k in NO_SPILL)]
+    _line("build", no_spill_kernels=",".join(NO_SPILL),
+          spilled=json.dumps(spilled))
+    if spilled:
+        raise AssertionError(f"kernels that must not spill do: {spilled}")
 
     tf_job = tensorflow_jobs(0)[0]
     rows, max_err = phase_kernel(device, tf_job)

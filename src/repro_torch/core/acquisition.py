@@ -36,6 +36,7 @@ import torch
 
 __all__ = [
     "expected_improvement", "prob_leq", "constraint_prob", "ei_constrained",
+    "ei_constrained_factors",
     "incumbent", "incumbent_fallback", "budget_ok", "normal_quantile",
     "quantize_scores", "no_contract", "gh_expect", "ftz", "sqrt_rn", "fma",
     "gauss_hermite", "gh_cost_nodes", "censored_adjust", "timeout_cap",
@@ -237,13 +238,22 @@ def constraint_prob(mu_c, sigma_c, unit_price, t_max, mu_parts=None
                     ftz(no_contract(ftz(t_max) * ftz(unit_price))), mu_parts)
 
 
+def ei_constrained_factors(mu, sigma, y_star, unit_price, t_max,
+                           mu_parts=None):
+    """EI and P(feasible), the two factors of :func:`ei_constrained`, for a
+    consumer that contracts their product into an addition (:func:`fma`)."""
+    return (expected_improvement(mu, sigma, y_star, mu_parts),
+            constraint_prob(mu, sigma, unit_price, t_max, mu_parts))
+
+
 def ei_constrained(mu, sigma, y_star, unit_price, t_max, mu_parts=None
                    ) -> torch.Tensor:
     """EI_c.  ``mu_parts = (acc, inv)`` when ``mu`` is the raw forest mean
     ``acc·inv``: the reference's backend then contracts that product into
     ``y* - mu`` and ``bound - mu`` (:func:`_minus_mu`)."""
-    return ftz(expected_improvement(mu, sigma, y_star, mu_parts)
-               * constraint_prob(mu, sigma, unit_price, t_max, mu_parts))
+    ei, cp = ei_constrained_factors(mu, sigma, y_star, unit_price, t_max,
+                                    mu_parts)
+    return ftz(ei * cp)
 
 
 def _masked_max(x, mask) -> torch.Tensor:

@@ -304,15 +304,26 @@ def _policy(s: Settings):
 
 
 def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, y_nodes,
-                    reward, cost, gamma0, *, points, left, thresholds, u,
-                    t_max, floor, s: Settings, frozen_ctx, cens, valid):
-    """Speculate every root's G-H nodes, recurse, and return the root
-    reward/path-cost and the pick (shared by the fused and unfused roots).
+                    reward, cost, gamma0, root_factors, *, points, left,
+                    thresholds, u, t_max, floor, s: Settings, frozen_ctx,
+                    cens, valid):
+    """Speculate every root's G-H nodes, recurse, and return the pick and
+    the root reward/path-cost diagnostics (shared by the fused and unfused
+    roots).
 
     ``y_nodes`` are the nodes the children's speculated y take, ``c_nodes``
     the ones their budget and incumbent take.  The reference's compiled
     root contracts the forest mean's product into the former
-    (``gh_cost_nodes``' ``mu_parts``; ROADMAP C2)."""
+    (``gh_cost_nodes``' ``mu_parts``; ROADMAP C2).
+
+    ``root_factors = (ei, cp, mu_parts)``: the root's EI and P(feasible),
+    whose product is ``reward``, and the parts of ``cost`` (None when a
+    censoring mask made it a select).  The reference computes each
+    diagnostic in a fusion of its own, which contracts ``ei·cp`` into the
+    reward's addition and the forest mean's product into the path cost's,
+    in every program shape (native or padded, la 1 or 2: read from the
+    compiled programs).  The pick's ratio takes the sums uncontracted, as
+    its own fusion does (ROADMAP C4)."""
     m_dim = y.shape[0]
     k = s.k_gh
     _, w = acq.gauss_hermite(k)
@@ -333,11 +344,16 @@ def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, y_nodes,
         points=points, left=left, thresholds=thresholds, u=u, t_max=t_max,
         floor=floor, s=s, frozen_ctx=frozen_ctx, cens_b=cens1, valid=valid)
     gamma = acq._f32(s.gamma)
-    reward = ftz(reward + ftz(acq.no_contract(
-        ftz(gamma * acq.gh_expect(r1.reshape(m_dim, k), w)))))
-    cost = ftz(cost + acq.gh_expect(c1.reshape(m_dim, k), w))
-    ratio = ftz(reward / torch.clamp_min(cost, _EPS))
+    future = ftz(acq.no_contract(
+        ftz(gamma * acq.gh_expect(r1.reshape(m_dim, k), w))))
+    path = acq.gh_expect(c1.reshape(m_dim, k), w)
+    ratio = ftz(ftz(reward + future)
+                / torch.clamp_min(ftz(cost + path), _EPS))
     score = acq.quantize_scores(_where(gamma0, ratio, -math.inf))
+    ei, cp, mu_parts = root_factors
+    reward = acq.fma(ei, cp, future)
+    cost = (ftz(cost + path) if mu_parts is None
+            else acq.fma(mu_parts[0], mu_parts[1], path))
     return torch.argmax(score), reward, cost
 
 
@@ -358,9 +374,9 @@ def _select_next_fused(key, y, obs_mask, beta, points, left, thresholds, u,
     root sweep is one ``select_step`` call with ``emit_full=True``."""
     floor = _sigma_floor(y, obs_mask, s.sigma_floor_rel)
     k_root, k_path = prng.split(key)
-    params, _ = trees.fit_forest(k_root, y, obs_mask, points, left,
-                                 thresholds, n_trees=s.n_trees,
-                                 depth=s.depth)
+    params, assign = trees.fit_forest(k_root, y, obs_mask, points, left,
+                                      thresholds, n_trees=s.n_trees,
+                                      depth=s.depth)
     obs, best_feas = _root_common(y, obs_mask, t_max, u, cens)
     score_mode, use_budget = _policy(s)
     lookahead = s.policy == "lynceus" and s.la > 0
@@ -389,9 +405,17 @@ def _select_next_fused(key, y, obs_mask, beta, points, left, thresholds, u,
 
     if not lookahead:
         return finish(sel0, has0)
+    # The root's EI and P(feasible) and its mean's parts, as the kernel
+    # computed them, for the reward and path-cost diagnostics.
+    parts = None
+    if cens is None:
+        parts = trees.forest_mu_sigma(params.leaf.gather(1, assign), floor,
+                                      with_parts=True)[2]
+    root_factors = acq.ei_constrained_factors(mu0, sig0, ystar0, u, t_max,
+                                              parts) + (parts,)
     sel, reward, cost = _lookahead_tail(
         k_path, y, obs, beta, best_feas, out[7][0], out[8][0], eic0, mu0,
-        cand0,
+        cand0, root_factors,
         points=points, left=left, thresholds=thresholds, u=u, t_max=t_max,
         floor=floor, s=s, frozen_ctx=None, cens=None if cens is None
         else cens.to(torch.bool), valid=valid)
@@ -421,7 +445,8 @@ def _select_next_impl(key, y, obs_mask, beta, points, left, thresholds, u,
         k_root, y, obs_mask, cens, points, left, thresholds, floor, s)
     obs, best_feas = _root_common(y, obs_mask, t_max, u, cens)
     ystar0 = acq.incumbent_fallback(best_feas, y, obs, sig0, valid)
-    eic0 = acq.ei_constrained(mu0, sig0, ystar0, u, t_max, parts)
+    ei0, cp0 = acq.ei_constrained_factors(mu0, sig0, ystar0, u, t_max, parts)
+    eic0 = ftz(ei0 * cp0)
     untested = ~obs if valid is None else ~obs & valid
     gamma0 = untested & acq.budget_ok(mu0, sig0, beta, s.conf, parts)
     diagnostics = {"mu": acq.quantize_scores(mu0),
@@ -460,9 +485,9 @@ def _select_next_impl(key, y, obs_mask, beta, points, left, thresholds, u,
                       y_nodes.reshape(-1))
     sel, reward, cost = _lookahead_tail(
         k_path, y, obs, beta, best_feas, c_nodes, y_nodes, eic0, mu0, gamma0,
-        points=points, left=left, thresholds=thresholds, u=u, t_max=t_max,
-        floor=floor, s=s, frozen_ctx=frozen_ctx, cens=None if cens is None
-        else cens.to(torch.bool), valid=valid)
+        (ei0, cp0, parts), points=points, left=left, thresholds=thresholds,
+        u=u, t_max=t_max, floor=floor, s=s, frozen_ctx=frozen_ctx,
+        cens=None if cens is None else cens.to(torch.bool), valid=valid)
     diagnostics["reward"] = acq.quantize_scores(reward)
     diagnostics["path_cost"] = acq.quantize_scores(cost)
     return finish(sel, gamma0.any())

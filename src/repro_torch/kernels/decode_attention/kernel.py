@@ -3,8 +3,11 @@
 
 :func:`prepare` checks the inputs and allocates the output, :func:`launch`
 launches once on prepared arguments, and :func:`decode_attention_cuda`
-does both and counts the launch in ``decode_attention_cuda.launches`` (and
-nowhere else).
+does both and counts the call in ``decode_attention_cuda.launches`` (and
+nowhere else).  A call is two kernels: the split kernel writes each
+split's softmax partials to a float32 scratch that :func:`prepare`
+allocates, and the combine kernel folds them in fixed split order
+(:func:`split_plan` chooses the splits).
 
 K and V are read through their strides: each row of D values contiguous,
 the batch, head and slot strides free (the same for K and V).  So a cache
@@ -15,6 +18,7 @@ view without a copy.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -22,18 +26,40 @@ import torch
 from repro_torch.kernels import capi
 from repro_torch.kernels.flash_attention.kernel import DTYPES, check_heads
 
-__all__ = ["decode_attention_cuda", "launch", "prepare"]
+__all__ = ["decode_attention_cuda", "launch", "prepare", "split_plan"]
 
 _OP = "decode_attention"
 # Outputs a block holds: G·D query-head values of one KV head.
 MAX_GROUP_WIDTH = 4096
+# Slots of a split-plan tile: every split is a whole number of them.
+TILE = 64
 
 
 def _fn():
     return capi.entry(_OP, "decode_attention_launch",
-                      [capi.P] * 4 + [capi.I] * 6
+                      [capi.P] * 5 + [capi.I] * 6
                       + [capi.F, capi.I, capi.P, capi.I]
-                      + [ctypes.c_longlong] * 3 + [capi.P])
+                      + [ctypes.c_longlong] * 3 + [capi.I, capi.I, capi.P])
+
+
+def split_plan(batch, n_kv, t, n_sm):
+    """``(n_split, tiles_per_split)``: how a call cuts its T slots.
+
+    One block per (batch, KV head, split); the splits aim at two waves of
+    blocks on ``n_sm`` SMs, a whole number of 64-slot tiles each, none
+    empty, and one split when ``batch·n_kv`` alone fills two waves.  It
+    depends on T only, never on ``pos``, so a call never waits on the host.
+    """
+    n_tiles = -(-t // TILE)
+    want = -(-2 * n_sm // max(batch * n_kv, 1))
+    n_split = min(n_tiles, max(want, 1))
+    per = -(-n_tiles // n_split)
+    return -(-n_tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cache(name, t, dtype, shape, device):
@@ -75,16 +101,22 @@ def prepare(q, k, v, pos, *, scale=None, window=None):
     else:
         pos_val = int(pos)
     scale = d ** -0.5 if scale is None else scale
+    n_split, per = split_plan(b, kh, t, _sm_count(dev.index))
     o = torch.empty_like(q)
+    # Each split's acc [G, D], then its (m, l) per head, in float32.
+    part = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                       device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, kh, t, d,
+            part.data_ptr(), int(q.dtype == torch.bfloat16), b, h, kh, t, d,
             float(np.float32(scale)), 0 if window is None else int(window),
-            capi.ptr(pos_t), pos_val, *k.stride()[:3], capi.stream(dev))
-    return args, o, (q, k, v, pos_t)
+            capi.ptr(pos_t), pos_val, *k.stride()[:3], n_split, per,
+            capi.stream(dev))
+    return args, o, (q, k, v, pos_t, part)
 
 
 def launch(args) -> None:
-    """One launch on prepared arguments; does not count."""
+    """One call (split and combine kernels) on prepared arguments; does not
+    count."""
     capi.raise_on_error(_OP, _fn()(*args))
 
 

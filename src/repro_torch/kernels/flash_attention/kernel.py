@@ -3,7 +3,9 @@
 :func:`prepare` checks the inputs and allocates the output, :func:`launch`
 launches once on prepared arguments, and :func:`flash_attention_cuda` does
 both and counts the launch in ``flash_attention_cuda.launches`` (and
-nowhere else).
+nowhere else).  The C entry routes by dtype: bfloat16 to the tensor-core
+kernel (``mma.sync`` with ``cp.async`` loads), float32 to the CUDA-core
+kernel, which keeps the float32 contract that TF32 would break.
 """
 
 from __future__ import annotations

@@ -138,8 +138,9 @@ PINNED = [(1, 2, False, 0, 0.6, 19, 3.0),
           (4, 2, True, 1, 0.6, 0, 2.0)]
 
 
-@pytest.mark.parametrize("jseed,la,padded,oseed,scale,key,bud", PINNED)
-def test_pinned_inputs_match_jax(jseed, la, padded, oseed, scale, key, bud):
+def _check_input(jseed, la, padded, oseed, scale, key, bud):
+    """One selection through JAX and both port paths: index, valid flag and
+    every diagnostic bitwise."""
     job = _job(jseed)
     space = (job.space.pad_to(GeometryBucket(m=32, f=3, t=6)) if padded
              else job.space)
@@ -163,6 +164,33 @@ def test_pinned_inputs_match_jax(jseed, la, padded, oseed, scale, key, bud):
         assert sorted(got[2]) == sorted(want[2]), mode
         for k, v in want[2].items():
             assert v.tobytes() == got[2][k].tobytes(), (mode, k)
+
+
+@pytest.mark.parametrize("jseed,la,padded,oseed,scale,key,bud", PINNED)
+def test_pinned_inputs_match_jax(jseed, la, padded, oseed, scale, key, bud):
+    _check_input(jseed, la, padded, oseed, scale, key, bud)
+
+
+# Inputs on which the root's reward or path-cost diagnostic differed from
+# the JAX package's by one quantization step (ROADMAP C4), one per program
+# shape and field where the survey found one (none for the reward of the
+# native la = 2 program).  The reference's compiled program computes each
+# diagnostic in a fusion of its own that contracts ei·cp into the reward's
+# addition and the forest mean's product into the path cost's.
+C4_REPAIRED = {
+    "la1-native-path_cost": (4, 1, False, 1, 0.6, 31, 2.0),
+    "la1-native-reward": (5, 1, False, 0, 1.0, 30, 2.0),
+    "la1-padded-path_cost": (4, 1, True, 0, 0.6, 5, 2.0),
+    "la1-padded-reward": (5, 1, True, 0, 1.0, 30, 2.0),
+    "la2-native-path_cost": (0, 2, False, 0, 1.0, 30, 2.0),
+    "la2-padded-path_cost": (5, 2, True, 0, 0.6, 20, 2.0),
+    "la2-padded-reward": (3, 2, True, 1, 1.0, 5, 3.0),
+}
+
+
+@pytest.mark.parametrize("case", list(C4_REPAIRED))
+def test_root_diagnostics_take_the_contracted_form(case):
+    _check_input(*C4_REPAIRED[case])
 
 
 def _survey_part(args):
