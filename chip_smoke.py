@@ -19,7 +19,9 @@ Phases, one line each with its times, then two JSON lines:
    the tensor-core kernel (S and T off the tiles, D 112 and 100, MQA),
    decode_attention on gemma2-9b caches at B = 8 (global T = 8192 and
    local ring T = 4096, each full and filling; splits whose slots are all
-   dead, every slot dead, a ragged last tile) and at zamba2-7b's shape.
+   dead, every slot dead, a ragged last tile) and at zamba2-7b's shape,
+   and ssm_scan at xlstm-125m's mLSTM widths (N = 192, P = 193, float32,
+   held against the plain version in float64 as in phase model).
    Each case is driven through the op once with the launch counts at 0,
    then held against the plain version within its tolerance and timed
    beside its plain version, its bound and, where one PyTorch call
@@ -52,7 +54,9 @@ Phases, one line each with its times, then two JSON lines:
    tokens/s.  Then layer 0's and layer 80's ssm_scan (float32, and k/q/v
    cast to bf16), site 0's flash_attention and the last decode_attention
    call, each held against its plain version on the arguments captured
-   from that run and timed beside it, its bound and (attention) SDPA.
+   from that run and timed beside it, its bound and (attention) SDPA;
+   ssm_scan also with each of its three kernels' device times
+   (``kernel_ms``: each launched alone between CUDA events).
    Last, zamba2-smoke through the kernels, teacher-forced, against the
    JAX package's logits (``golden_zamba.json``, atol 2e-4);
 
@@ -79,6 +83,7 @@ os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_BUILD, "triton"))
 import gc  # noqa: E402
 import json  # noqa: E402
 import pathlib  # noqa: E402
+import re  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -93,11 +98,14 @@ GOLDEN_ZAMBA = ROOT / "src" / "repro_torch" / "testdata" / "golden_zamba.json"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12        # dense, tensor cores
+TF32_OPS_PER_S = 495e12        # dense, tensor cores
 
 
 def _fmt(key, v):
     if isinstance(v, float) and key.endswith("ms"):
         return f"{v:.5f}"
+    if isinstance(v, dict):
+        return json.dumps(v, separators=(",", ":"))
     return json.dumps(v) if isinstance(v, str) else v
 
 
@@ -700,7 +708,45 @@ def ops_cases(device, tf_job):
         extra=dict(B=z["b"], H=z["kh"], KH=z["kh"], T=z["t"], D=z["d"],
                    live_slots=z["t"], k_strides=list(k.stride()),
                    splits=da.split_plan(z["b"], z["kh"], z["t"], n_sm)[0])))
+    cases.append(_xlstm_scan_case(device))
     return cases
+
+
+# xlstm-125m's mLSTM calls the scan with N = head_dim = 192 and P = 193 (v
+# and the normalizer): src/repro/models/xlstm.py:94, configs/xlstm_125m.py.
+XLSTM_SCAN = dict(b=4, l=1000, h=4, n=192, p=193, chunk=256)
+
+
+def _xlstm_scan_case(device):
+    """ssm_scan at xlstm-125m's mLSTM widths, float32, held against the
+    plain version evaluated in float64 at the model path's gate."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
+
+    x = XLSTM_SCAN
+    b, l, h, n, p, chunk = (x[k] for k in ("b", "l", "h", "n", "p",
+                                           "chunk"))
+    g = torch.Generator(device=device).manual_seed(192)
+    k = torch.randn((b, l, h, n), generator=g, device=device) * n ** -0.5
+    q = torch.randn((b, l, h, n), generator=g, device=device) * n ** -0.5
+    v = torch.randn((b, l, h, p), generator=g, device=device)
+    ld = -torch.rand((b, l, h), generator=g, device=device) * 0.5 - 0.01
+    gate = torch.rand((b, l, h), generator=g, device=device)
+    args = (k, v, q, ld, gate)
+    kw = dict(chunk=chunk)
+    exact = linear_scan(*(t.double() for t in args), **kw, force="ref")
+    nbytes, ops, peak, work = _ssm_bound(args, kw, chunk, "float32")
+    return OpCase(
+        "ssm_scan", f"xlstm-125m mLSTM widths: B {b}, L {l}, H {h}, N {n}, "
+        f"P {p}, chunk {chunk}, float32",
+        run=lambda: linear_scan(*args, **kw),
+        plain=lambda: linear_scan(*args, **kw, force="ref"),
+        prep=lambda: sk.prepare(*args, **kw), launch=sk.launch,
+        compare=lambda got, want: _scan_check(
+            got, want, exact, SSM_PLAIN_TOL["float32"])[:2],
+        nbytes=nbytes, ops=ops, peak=peak, reps=20, plain_reps=5,
+        extra=dict(B=b, L=l, H=h, N=n, P=p, chunk=chunk, **work))
 
 
 def _live_pairs(s, t, causal, window):
@@ -757,10 +803,12 @@ def _op_counters():
         decode_attention_cuda)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.gh_ei.kernel import gh_ei_cuda
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_cuda
     from repro_torch.kernels.tree_predict.kernel import tree_predict_cuda
     return dict(tree_predict=tree_predict_cuda, gh_ei=gh_ei_cuda,
                 flash_attention=flash_attention_cuda,
-                decode_attention=decode_attention_cuda)
+                decode_attention=decode_attention_cuda,
+                ssm_scan=ssm_scan_cuda)
 
 
 def phase_ops(device, tf_job):
@@ -797,6 +845,8 @@ def phase_ops(device, tf_job):
         args, _out, keep = case.prep()
         ms = _launch_ms(lambda: case.launch(args), n=case.reps,
                         warmup=min(3, case.reps))
+        if case.kernel == "ssm_scan":
+            case.extra["kernel_ms"] = _ssm_kernel_ms(args)
         del _out, keep
         plain_ms = _median_ms(case.plain, reps=case.plain_reps,
                               warmup=1)
@@ -1051,6 +1101,34 @@ def _ssm_work(args, kw, chunk):
     return nbytes, recurrence, chunked
 
 
+def _ssm_bound(args, kw, chunk, dtype):
+    """Bytes, operations and peak of the least time over the algorithms:
+    the recurrence on the CUDA cores whatever the input type; the chunked
+    form on the CUDA cores, on the tensor cores at the inputs' type (bf16),
+    and in split TF32 (three products for each, the float32 form the
+    kernel runs).  Returns (bytes, ops, peak, fields naming them)."""
+    nbytes, recurrence, chunked = _ssm_work(args, kw, chunk)
+    forms = [(recurrence, FP32_OPS_PER_S, "recurrence"),
+             (chunked, FP32_OPS_PER_S, "chunked"),
+             (3 * chunked, TF32_OPS_PER_S, "chunked, split TF32")]
+    if dtype == "bfloat16":
+        forms.append((chunked, BF16_OPS_PER_S, "chunked, bf16"))
+    ops, peak, algorithm = min(forms, key=lambda w: w[0] / w[1])
+    return nbytes, ops, peak, dict(ops_algorithm=algorithm,
+                                   ops_recurrence=recurrence,
+                                   ops_chunked=chunked)
+
+
+def _ssm_kernel_ms(prep, n=20):
+    """Device ms of each of ssm_scan's three kernels, each launched alone
+    ``n`` times on the prepared arguments between CUDA events (the state
+    passing rewrites the scratch in place: these launches are for timing
+    only, after the call's outputs were checked)."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    return {name: round(_launch_ms(lambda: sk.launch(prep, 1 << i), n=n), 5)
+            for i, name in enumerate(sk.PHASES)}
+
+
 class _HostClock:
     """Where a serving run's host time goes: the process's CPU seconds
     (all its threads) and the wall seconds of the block, the cyclic
@@ -1276,20 +1354,13 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
                                           SSM_PLAIN_TOL[dtype])
             del exact
             ms = _launch_ms(lambda: sk.launch(prep), n=20)
+            kernel_ms = _ssm_kernel_ms(prep)
             plain_ms = _median_ms(lambda: linear_scan_ref(*a, **kw), reps=5,
                                   warmup=1)
-            nbytes, recurrence, chunked = _ssm_work(a, kw, chunk)
-            # The least time over the two algorithms: the recurrence on the
-            # CUDA cores whatever the input type, the chunked form's
-            # products at the peak of the inputs' type.
-            peak = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
-            ops, peak, algorithm = min(
-                (recurrence, FP32_OPS_PER_S, "recurrence"),
-                (chunked, peak, "chunked"), key=lambda w: w[0] / w[1])
+            nbytes, ops, peak, work = _ssm_bound(a, kw, chunk, dtype)
             b_, l_, h_, n_ = a[0].shape
             report("ssm_scan", f"layer {i}, {dtype}", err, bad, ms, plain_ms,
-                   None, nbytes, ops, peak=peak, ops_algorithm=algorithm,
-                   ops_recurrence=recurrence, ops_chunked=chunked,
+                   None, nbytes, ops, peak=peak, kernel_ms=kernel_ms, **work,
                    B=b_, L=l_, H=h_, N=n_, P=a[1].shape[-1], chunk=chunk,
                    k_head_stride=a[0].stride(2), **extra)
             del prep, outs, keep, want_out
@@ -1520,9 +1591,7 @@ def phase_analysis(device):
 
 def _all_counters():
     from repro_torch.kernels.select_step.kernel import select_step_cuda
-    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_cuda
-    return dict(_op_counters(), select_step=select_step_cuda,
-                ssm_scan=ssm_scan_cuda)
+    return dict(_op_counters(), select_step=select_step_cuda)
 
 
 # Of each op's cases, the one that stands for it in the summary line (its
@@ -1560,21 +1629,21 @@ def _op_summary(rows, launches):
             "library_ms": row["library_ms"], "case": row["case"],
             "cases": [{k: r[k] for k in ("case", "max_abs_err", "ms",
                                          "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by")}
-                      for r in mine]})
+                                         "bound_ms", "bound_by", "kernel_ms")
+                       if k in r} for r in mine]})
     return out
 
 
 # Kernels whose register budget is part of their design: -Xptxas -v must
 # show no spill for any of their instantiations.
 NO_SPILL = ("flash_bf16_kernel", "decode_split_kernel",
-            "decode_combine_kernel")
+            "decode_combine_kernel", "ssm_chunk_state_kernel",
+            "ssm_state_pass_kernel", "ssm_chunk_scan_kernel")
 
 
 def _spills(logs):
     """Spilled bytes (stores plus loads) of every function in the
     ``-Xptxas -v`` output of ``logs``, by mangled name."""
-    import re
     out, fn = {}, None
     for log in logs.values():
         for ln in log.splitlines():

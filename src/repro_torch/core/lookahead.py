@@ -127,12 +127,13 @@ def _fit_root(key, y, obs_mask, cens, points, left, thresholds, floor,
 
 
 def _fit_batch_exact(key, y_b, m_b, cens_b, points, left, thresholds, floor,
-                     s: Settings):
+                     s: Settings, y_split=None):
     """y_b, m_b[, cens_b]: [S, M] -> mu, sigma: [S, M] and the mean's parts
-    (as :func:`_fit_root`); state i fits under ``fold_in(key, i)``."""
+    (as :func:`_fit_root`); state i fits under ``fold_in(key, i)``.
+    ``y_split``: the y the split search reads (``trees.fit_forest``)."""
     params, assign = trees.fit_forest(
         _state_keys(key, y_b.shape[0]), y_b, m_b, points, left, thresholds,
-        n_trees=s.n_trees, depth=s.depth)
+        n_trees=s.n_trees, depth=s.depth, y_split=y_split)
     preds = params.leaf.gather(2, assign)                       # [S, B, M]
     mu, sigma, parts = trees.forest_mu_sigma(preds.transpose(0, 1), floor,
                                              with_parts=True)
@@ -143,12 +144,13 @@ def _fit_batch_exact(key, y_b, m_b, cens_b, points, left, thresholds, floor,
     return mu, sigma, parts
 
 
-def _fit_batch_params(key, y_b, m_b, points, left, thresholds, s: Settings):
+def _fit_batch_params(key, y_b, m_b, points, left, thresholds, s: Settings,
+                      y_split=None):
     """Per-state forest parameters [S, B, D, W] for the fused step, under
     the same key schedule as :func:`_fit_batch_exact`."""
     params, _ = trees.fit_forest(
         _state_keys(key, y_b.shape[0]), y_b, m_b, points, left, thresholds,
-        n_trees=s.n_trees, depth=s.depth)
+        n_trees=s.n_trees, depth=s.depth, y_split=y_split)
     return params
 
 
@@ -199,10 +201,12 @@ def _where(c, a, b):
 
 def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
              thresholds, u, t_max, floor, s: Settings, frozen_ctx,
-             cens_b=None, valid=None):
+             cens_b=None, valid=None, y_split=None):
     """Score each state's own argmax-EI_c pick; branch if depth_left > 0.
 
-    Returns (reward [S], cost [S]) — zero for states whose Gamma is empty.
+    ``y_split`` is the y these states' split search reads (see
+    :func:`_lookahead_tail`), None for ``y_b``.  Returns (reward [S], cost
+    [S]) — zero for states whose Gamma is empty.
     """
     k_fit, k_next = prng.split(key)
     fused = _fused_mode(s)
@@ -210,7 +214,7 @@ def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
     xi = torch.as_tensor(xi_np, device=y_b.device)
     if fused is not None:
         params = _fit_batch_params(k_fit, y_b, m_b, points, left,
-                                   thresholds, s)
+                                   thresholds, s, y_split)
         # The kernel takes contiguous rows; the speculated states are views
         # of broadcasts.
         y_b, m_b, beta_b, bf_b = (a.contiguous()
@@ -240,7 +244,7 @@ def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
         else:
             mu, sigma, parts = _fit_batch_exact(k_fit, y_b, m_b, cens_b,
                                                 points, left, thresholds,
-                                                floor, s)
+                                                floor, s, y_split)
         ystar = acq.incumbent_fallback(bf_b, y_b, m_b, sigma, valid)
         eic = acq.ei_constrained(mu, sigma, ystar[:, None], u[None, :],
                                  t_max, parts)
@@ -263,8 +267,9 @@ def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
     s_dim, m_dim = y_b.shape
     k = s.k_gh
     sel_oh = sel[:, None] == torch.arange(m_dim, device=y_b.device)
-    y_child = torch.where(sel_oh[:, None, :], c_nodes[:, :, None],
-                          y_b[:, None, :])                       # [S, K, M]
+    speculate = lambda y_: torch.where(sel_oh[:, None, :],
+                                       c_nodes[:, :, None], y_[:, None, :])
+    y_child = speculate(y_b)                                     # [S, K, M]
     m_child = (m_b.to(torch.bool) | sel_oh)[:, None, :].expand(s_dim, k,
                                                                m_dim)
     beta_child = ftz(beta_b[:, None] - c_nodes)
@@ -283,7 +288,8 @@ def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
         k_next, flat(y_child), flat(m_child), flat(beta_child),
         flat(bf_child), depth_left - 1, points=points, left=left,
         thresholds=thresholds, u=u, t_max=t_max, floor=floor, s=s,
-        frozen_ctx=child_frozen, cens_b=cens_child, valid=valid)
+        frozen_ctx=child_frozen, cens_b=cens_child, valid=valid,
+        y_split=None if y_split is None else flat(speculate(y_split)))
     r_ch = r_ch.reshape(s_dim, k)
     c_ch = c_ch.reshape(s_dim, k)
     gamma = acq._f32(s.gamma)
@@ -311,10 +317,17 @@ def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, y_nodes,
     the root reward/path-cost diagnostics (shared by the fused and unfused
     roots).
 
-    ``y_nodes`` are the nodes the children's speculated y take, ``c_nodes``
-    the ones their budget and incumbent take.  The reference's compiled
-    root contracts the forest mean's product into the former
-    (``gh_cost_nodes``' ``mu_parts``; ROADMAP C2).
+    ``y_nodes`` are the root's nodes with the forest mean's product
+    contracted into the addition (``gh_cost_nodes``' ``mu_parts``),
+    ``c_nodes`` the same nodes uncontracted; the children's budget and
+    incumbent take ``c_nodes``.  Their speculated y is copied into each
+    fusion of the reference's program that reads it, and each rounds it
+    its own way (ROADMAP C2, C4, C5; read from the compiled programs):
+    the split search's node sums take ``y_nodes`` for every root; the leaf
+    means of a native program take ``c_nodes`` for the roots its CPU
+    backend runs in 8-wide vector lanes (the first ``M // 8 * 8``) and
+    ``y_nodes`` for the scalar tail, those of a padded program
+    ``y_nodes``.
 
     ``root_factors = (ei, cp, mu_parts)``: the root's EI and P(feasible),
     whose product is ``reward``, and the parts of ``cost`` (None when a
@@ -330,7 +343,13 @@ def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, y_nodes,
     eye = torch.eye(m_dim, dtype=torch.bool, device=y.device)
     if valid is not None:
         eye = eye & valid[None, :]
-    y1 = torch.where(eye[:, None, :], y_nodes[:, :, None], y[None, None, :])
+    speculate = lambda nodes: torch.where(eye[:, None, :], nodes[:, :, None],
+                                          y[None, None, :])
+    y_means = y_nodes
+    if valid is None:
+        lanes = torch.arange(m_dim, device=y.device) < m_dim // 8 * 8
+        y_means = torch.where(lanes[:, None], c_nodes, y_nodes)
+    y1, y1_split = speculate(y_means), speculate(y_nodes)
     m1 = (obs[None, :] | eye)[:, None, :].expand(m_dim, k, m_dim)
     beta1 = ftz(beta - c_nodes)
     feas1 = c_nodes <= ftz(t_max * u)[:, None]
@@ -342,7 +361,8 @@ def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, y_nodes,
     r1, c1 = _recurse(
         k_path, flat(y1), flat(m1), flat(beta1), flat(bf1), s.la - 1,
         points=points, left=left, thresholds=thresholds, u=u, t_max=t_max,
-        floor=floor, s=s, frozen_ctx=frozen_ctx, cens_b=cens1, valid=valid)
+        floor=floor, s=s, frozen_ctx=frozen_ctx, cens_b=cens1, valid=valid,
+        y_split=flat(y1_split))
     gamma = acq._f32(s.gamma)
     future = ftz(acq.no_contract(
         ftz(gamma * acq.gh_expect(r1.reshape(m_dim, k), w))))

@@ -208,8 +208,15 @@ def make_left_table(points, thresholds, device=None) -> torch.Tensor:
     return (points[:, :, None] <= thresholds[None, :, :]).to(torch.float32)
 
 
-def _fit_trees(y, w, left, *, depth: int, min_weight: float):
-    """Fit N independent trees. y, w: [N, M]; left: [M, F, T].
+# The row width at which the reference's node sums of the split search are
+# trees of halves (read from its compiled padded selector programs).
+_BUCKET_ROW = 32
+
+
+def _fit_trees(y, w, left, *, depth: int, min_weight: float, y_split=None):
+    """Fit N independent trees. y, w: [N, M]; left: [M, F, T].  ``y_split``
+    (default ``y``) is the y the split search's node sums read; ``y`` the
+    one the leaf means read (see :func:`fit_forest`).
 
     Returns (assign [N, M], leaf [N, 2**depth], feat levels, thr meta)."""
     n_rows, m = w.shape
@@ -224,6 +231,7 @@ def _fit_trees(y, w, left, *, depth: int, min_weight: float):
     assign = torch.zeros((n_rows, m), dtype=torch.int64, device=dev)
     sw0 = w.sum(dim=1)
     wy = _no_contract(w * y)
+    wys = wy if y_split is None else _no_contract(w * y_split)
     val = _div(_pinned_sum(wy, 1), torch.clamp_min(sw0, _EPS))[:, None]
 
     feat_lvls, thr_meta = [], []
@@ -232,13 +240,20 @@ def _fit_trees(y, w, left, *, depth: int, min_weight: float):
         onehot = (assign[:, :, None]
                   == torch.arange(n, device=dev)).to(torch.float32)  # [N,M,n]
         sw_n = (onehot * w[:, :, None]).sum(dim=1)                   # [N, n]
-        # At the root every point sits in node 0: XLA folds the one-hot
-        # to ones and the product to a plain reduction.
-        swy_n = (xla_sum(wy)[:, None] if lvl == 0
-                 else _seq_sum_by_node(onehot, wy))
+        # Over the 32 points of the geometry bucket the reference's CPU
+        # backend adds each node's row as a tree of halves.  Elsewhere, at
+        # the root every point sits in node 0: XLA folds the one-hot to
+        # ones and the product to a plain reduction; below it adds in point
+        # order (ROADMAP C4).
+        if m == _BUCKET_ROW:
+            swy_n = _pinned_sum(onehot * wys[:, :, None], 1)
+        elif lvl == 0:
+            swy_n = xla_sum(wys)[:, None]
+        else:
+            swy_n = _seq_sum_by_node(onehot, wys)
         sl_w = torch.matmul((onehot * w[:, :, None]).transpose(1, 2),
                             left_flat)                               # [N,n,FT]
-        sl_wy = _xla_dot((onehot * wy[:, :, None]).transpose(1, 2),
+        sl_wy = _xla_dot((onehot * wys[:, :, None]).transpose(1, 2),
                          left_flat, rows=n_rows * 2 * n)
         sl_w = sl_w.reshape(n_rows, n, f_dims, t_dims)
         sl_wy = sl_wy.reshape(n_rows, n, f_dims, t_dims)
@@ -283,7 +298,7 @@ def _fit_trees(y, w, left, *, depth: int, min_weight: float):
 
 
 def fit_forest(key, y, obs_mask, points, left, thresholds, *, n_trees: int,
-               depth: int, min_weight: float = 1.0):
+               depth: int, min_weight: float = 1.0, y_split=None):
     """Fit the bagged forest, for one state or a batch of states.
 
     Args:
@@ -294,6 +309,10 @@ def fit_forest(key, y, obs_mask, points, left, thresholds, *, n_trees: int,
         split search reads ``left``; kept for the reference's signature).
       left: ``[M, F, T]`` precomputed ``make_left_table``.
       thresholds: ``[F, T]`` normalized threshold values (+inf padded).
+      y_split: ``[..., M]`` or None (``y``): the y the split search reads,
+        where the reference's program gives it another rounding of a
+        speculated value than the leaf means get
+        (``lookahead._lookahead_tail``).
     Returns:
       (ForestParams, per-tree leaf assignment ``[..., B, M]``).
     """
@@ -308,10 +327,12 @@ def fit_forest(key, y, obs_mask, points, left, thresholds, *, n_trees: int,
     w = boot * obs[:, None, :]
     dead = w.sum(dim=2, keepdim=True) < _f32(min_weight)
     w = torch.where(dead, obs[:, None, :].expand_as(w), w)
-    y_rows = y[:, None, :].expand(n_states, n_trees, m).reshape(-1, m)
+    rows = lambda v: v.reshape(-1, m).to(torch.float32)[:, None, :].expand(
+        n_states, n_trees, m).reshape(-1, m)
     assign, leaf, feat_lvls, thr_meta = _fit_trees(
-        y_rows, w.reshape(-1, m), left, depth=depth, min_weight=min_weight)
-    n_rows = y_rows.shape[0]
+        rows(y), w.reshape(-1, m), left, depth=depth, min_weight=min_weight,
+        y_split=None if y_split is None else rows(y_split))
+    n_rows = n_states * n_trees
     if depth > 0:
         feat = torch.stack(feat_lvls, dim=1)
         thr_rows = []

@@ -1,6 +1,6 @@
 // Chunked SSD scan for Hopper (sm_90a): the gated linear recurrence of
 // Mamba2 (and mLSTM), S_t = exp(ld_t)·S_{t-1} + g_t·k_t v_tᵀ, y_t = q_t·S_t,
-// evaluated chunk by chunk in float32.
+// evaluated chunk-parallel in three kernels on the tensor cores.
 //
 // Replaces the TPU kernel `ssm_scan_call` / `_kernel` of
 // src/repro/kernels/ssm_scan/kernel.py (`_kernel` at line 27, the wrapper
@@ -8,68 +8,110 @@
 // (float32 or bfloat16, any strides: Mamba2's B and C come with a head
 // stride of 0), log_decay and gate [B, L, H] float32 (any strides) and an
 // optional initial state [B, H, N, P] float32 give y [B, L, H, P] and the
-// final state [B, H, N, P], both float32.  Per chunk of `chunk` rows:
-//   intra:  y_i  = sum_{j<=i} (q_i·k_j) exp(cum_i - cum_j) g_j v_j
-//   carry:  y_i += exp(cum_i) · (q_i S_prev)
-//   update: S    = exp(total)·S_prev + sum_j exp(total - cum_j) g_j k_j v_jᵀ
-// where cum is the within-chunk inclusive sum of log_decay and total its
-// last value.  Any L: the last chunk simply ends at L, which is what the
-// reference's tail padding computes (gate 0 and log-decay 0 leave y and
-// the state of the real rows as they are).  The plain PyTorch version is
-// src/repro_torch/kernels/ssm_scan/ref.py.
+// final state [B, H, N, P], both float32.  Any N and P that fit the shared
+// memory (kernel.py's `plan` says which).  With cum the within-chunk
+// inclusive sum of log_decay and total its last value, per chunk c:
+//   1. chunk state:  dS_c    = sum_j exp(total - cum_j) g_j k_j v_jᵀ
+//   2. state passing: S_c    = exp(total_c)·S_{c-1} + dS_c, S_{-1} = s0 or 0
+//   3. chunk scan:   y_i     = sum_{j<=i} (q_i·k_j) exp(cum_i - cum_j) g_j v_j
+//                            + exp(cum_i) · (q_i S_{c-1})
+// This is the SSD decomposition: only phase 2 runs over the chunks in
+// order, and it moves N·P floats a chunk; phases 1 and 3, which hold the
+// products, run every chunk at once.  Any L: the last chunk ends at L,
+// which is what the reference's tail padding computes (gate 0 and
+// log-decay 0 leave y and the state of the real rows as they are).  The
+// plain PyTorch version is src/repro_torch/kernels/ssm_scan/ref.py; the
+// same decomposition in float64 is its `three_phase_scan_ref`.
 //
 // Order and precision of sums, which differ from the plain version's: the
 // within-chunk cumsum is accumulated in float64.  It splits the chunk into
 // 32 contiguous runs; each lane of one warp sums its run left to right, a
 // shuffle scan (Hillis-Steele) gives the runs' inclusive totals, and each
-// run adds the total of the runs before it.  Each decay exponent (cum_i -
-// cum_j, total - cum_j, cum_i, total) is taken in float64 and rounded once
-// to float32 before expf.  The plain version, as the reference, sums and
-// subtracts in float32, which loses the digits of cum_i - cum_j where
-// |cum| is much larger (a long chunk or a fast decay: deep in a random
-// 81-layer model the per-step log-decay reaches tens); the kernel's
-// weights are the more accurate, and chip_smoke.py judges the two against
-// a float64 evaluation where they disagree.  Products over N and over keys
-// are fmaf chains (the build keeps -fmad=false), in an order other than
-// the CPU's BLAS.  Built with -ftz=true: where exp(cum) falls below
-// float32's normal range on a long chunk the card gives 0 where the CPU
-// gives a subnormal, an absolute difference under 1.2e-38.
+// run adds the total of the runs before it.  Phases 1 and 3 run the same
+// code on the same rows, so they see the same cum.  Each decay exponent
+// (cum_i - cum_j, total - cum_j, cum_i, total) is taken in float64 and
+// rounded once to float32 before expf; none is factored as
+// exp(cum_i)·exp(-cum_j), which over- or underflows where |cum| reaches
+// tens (deep in a random 81-layer model the per-step log-decay does).  The
+// plain version, as the reference, sums and subtracts in float32, which
+// loses the digits of cum_i - cum_j where |cum| is much larger; the
+// kernel's weights are the more accurate, and chip_smoke.py judges the two
+// against a float64 evaluation.  Built with -fmad=false and -ftz=true:
+// where exp(cum) falls below float32's normal range the card gives 0 where
+// the CPU gives a subnormal.
+//
+// Products on the tensor cores without losing float32.  float32 inputs:
+// `mma.sync.m16n8k8` TF32 with each float32 operand x split into a TF32
+// head h = rna(x) and remainder l = rna(x - h) (x - h is exact), and
+// a·b ~ ha·hb + ha·lb + la·hb accumulated in float32: a relative error
+// near 2^-21 a product where one TF32 rounding gives 2^-11.  bfloat16
+// inputs: k, q and v stay bf16 in shared memory (half the bytes) and go to
+// `mma.sync.m16n8k16` bf16 (a bf16 product is exact in float32); every
+// float32 operand (the weighted scores, S_{c-1}, k_j·w_j) goes in three
+// bf16 parts, head, middle and remainder, which carry its 24 bits, on one
+// bf16 fragment of the other operand.  tests/test_torch_ssm_scan.py holds
+// both in plain arithmetic against float64 at the card's gate.
 //
 // Bound on the H100: operations.  At zamba2-7b's prefill (B = 4, L =
 // 1000, H = 112, N = P = 64, chunk 256) the function's least work is the
 // step-by-step recurrence, 5·N·P + N operations a row, 9.2 GFLOP: 0.137 ms
-// at the published 67 TFLOP/s of float32 outside the tensor cores,
-// against about 0.24 GB of v, y and the state (k and q once each through
-// their head stride of 0), 0.072 ms at 3.35 TB/s.  The chunked form this
-// kernel runs needs 22 GFLOP (the causal pairs of the intra product, the
-// carry and the update), 0.33 ms on the CUDA cores.
+// at the published 67 TFLOP/s of float32 outside the tensor cores.  The
+// chunked form needs 22 GFLOP, three times over in split operands: 0.133
+// ms at the 495 TFLOP/s of TF32.  Bytes: about 0.24 GB of v, y and the
+// state (k and q once each through their head stride of 0), 0.072 ms at
+// 3.35 TB/s, plus the chunk states' scratch (phase 1 writes, phase 2 reads
+// and writes, phase 3 reads: 4 x 29 MB at zamba2-7b, mostly in L2).
 //
-// Design: one block of 256 threads per (batch, head) loops over the chunks
-// itself, as the TPU grid's sequential chunk axis did, and keeps S [N, P]
-// in shared memory from one chunk to the next.  The chunk's scores are
-// tiled in 64-row query tiles against 64-row key tiles up to the diagonal
-// (a 256 x 256 float32 score matrix would not fit in a block's shared
-// memory).  Each thread holds a 4 x 4 block of scores (rows ty + 16i, keys
-// tx + 16j) and a 4 x 4 block of outputs (rows ty + 16i, columns 4tx + e),
-// reads its operands from shared memory as float4 and accumulates with
-// fmaf.  The diagonal tile also feeds the state update, kept in registers
-// (rows n = ty + 16i, columns 4tx + e) until the chunk ends.  N and P are
-// zero-padded to 64 in shared memory.  All float32 on the CUDA cores, for
-// both input types (no tensor cores yet): on the CUDA cores the chunked
-// form cannot go under its own 0.33 ms, 2.4x the bound; the chunked form
-// on the tensor cores, or the recurrence itself, could come near it.
+// Design, 256 threads (8 warps) a block in phases 1 and 3:
+// - Phase 1 (`ssm_chunk_state_kernel`), grid (B·H, chunk, N tile x P
+//   tile): a 64 x 64 tile of dS_c.  Each warp owns 16 state rows n and 32
+//   columns p; the chunk's rows come in 64-row slabs of k and v through a
+//   two-stage `cp.async` ring, and (K∘w)ᵀ is read transposed from the k
+//   slab.  The blocks of N and P tile 0 also write the chunk's cumsum and
+//   gate to a float64 / float32 scratch and exp(total_c), for phases 2
+//   and 3 (phase 3 then never reads log_decay or gate, nor scans).
+// - Phase 2 (`ssm_state_pass_kernel`), grid (B·H, N·P / 1024): one thread
+//   four elements of the state (float4 where N·P allows) walks the chunks
+//   in order, four chunks' loads in flight at once, writes S_{c-1} in
+//   place of dS_c in the scratch and the final state.
+// - Phase 3 (`ssm_chunk_scan_kernel`), grid (B·H, chunk, query tile x P
+//   tile), the heaviest query tiles first: 64 query rows.  Warps w and
+//   w + 4 share 16 query rows; each takes half of every 64-key tile (32
+//   keys) and half of the carry's k-steps, and the two partial sums meet
+//   through shared memory at the end.  The q tile (all N) stays in shared
+//   memory; S_{c-1}'s P tile lands in the ring's second stage and the
+//   carry q·S_{c-1} starts the accumulator, scaled by exp(cum_i); then the
+//   64-row k and v tiles up to the diagonal stream through the two-stage
+//   ring.  Scores S = Q·Kᵀ stay in registers, are weighted and masked
+//   there, and feed the product with V as A fragments straight from the
+//   accumulator layout (TF32: the k index permuted so that a thread's two
+//   score columns 2t, 2t+1 are its A slots t, t+4, and V read with the
+//   same permutation).  A warp skips the key columns past its last row in
+//   the diagonal tile.  Each split product is issued term by term over all
+//   of a warp's accumulators, so that no two products in a row wait on one
+//   accumulator.
+// Every row of k, q and v that a block needs is copied from device memory
+// once, at its true strides: 16-byte `cp.async` where rows are aligned
+// and contiguous, else 4-byte `cp.async` (float32) or plain loads (bf16);
+// rows past the chunk and columns past N or P are zero-filled.  Shared
+// rows are padded so that fragment reads are free of bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;            // rows of a query or key tile
-constexpr int kW = 64;               // N and P, zero-padded
-constexpr int kStride = kW + 4;      // row stride of every shared tile
+constexpr int kThreads = 256;        // phases 1 and 3: 8 warps
+constexpr int kPassThreads = 256;    // phase 2
+constexpr int kRows = 64;            // rows of a query, key or slab tile
+constexpr int kPT = 64;              // columns of a P tile
+constexpr int kNT = 64;              // rows of phase 1's N tile
+constexpr int kSlab = 72;            // phase 1's shared row (k and v)
+constexpr int kSmemLimit = 232448;
 
 struct Params {
   const void* k;
@@ -80,290 +122,781 @@ struct Params {
   const float* s0;                   // null: the state starts at 0
   float* y;
   float* s_out;
+  float* ds;                         // [B·H, C, N, P] dS_c, then S_{c-1}
+  float* etot;                       // [B·H, C] exp(total_c)
+  double* cum;                       // [B·H, C, chunk_pad] cumsum, phase 1
+  float* gate;                       // [B·H, C, chunk_pad] the gate, phase 1
   long long sk[4], sq[4], sv[4], sld[3], sg[3];
-  int B, L, H, N, P, chunk;
+  int B, L, H, N, P, chunk, C;
+  int vec_k, vec_q, vec_v;           // rows aligned for 16-byte copies
 };
+
+template <typename T> struct Layout;
+// Shared row strides (in elements) of phase 3: q and k rows (QS), v rows
+// (VS), S_{c-1} rows (SS, float).  Each makes its fragment reads hit 32
+// banks.  N is padded to the k-step of the product.
+template <> struct Layout<float> {
+  static constexpr int kStep = 8;
+  static constexpr int kQPad = 4, kVS = 68, kSS = 72;
+};
+template <> struct Layout<__nv_bfloat16> {
+  static constexpr int kStep = 16;
+  static constexpr int kQPad = 8, kVS = 72, kSS = 68;
+};
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// ---------------------------------------------------------------------------
+// Copies and fragments
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// `rows` rows of `width` values (row stride s_row, column stride s_col)
+// into dst [rows_pad][stride], zero where r >= rows or c >= width, for
+// c < width_pad.  vec: 16-byte copies (s_col == 1, rows 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, int stride, const T* src,
+                                      long long s_row, long long s_col,
+                                      int rows, int width, int rows_pad,
+                                      int width_pad, bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    const int per_row = width_pad / E;
+    for (int i = threadIdx.x; i < rows_pad * per_row; i += kThreads) {
+      const int r = i / per_row, c = (i % per_row) * E;
+      const int n = r < rows ? max(0, min(E, width - c)) : 0;
+      cp_async16(dst + r * stride + c, n ? src + r * s_row + c : src,
+                 n * static_cast<int>(sizeof(T)));
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows_pad * width_pad; i += kThreads) {
+      const int r = i / width_pad, c = i % width_pad;
+      const bool ok = r < rows && c < width;
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(dst + r * stride + c, ok ? src + r * s_row + c * s_col
+                                           : src, ok ? 4 : 0);
+      } else {
+        dst[r * stride + c] = ok ? src[r * s_row + c * s_col] : T(0.0f);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to about 2^-22 of x: hi its TF32 rounding, lo the rounded
+// remainder (x - hi is exact in float32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1));
+}
+
+// d[j] += a·b[j] for J accumulators in split TF32, b[j] the float32 pair
+// (b0[j], b1[j]): every b split first, then the three terms pass by pass
+// (the two small ones first), so that no two products in a row wait on
+// one accumulator.  Only the first `jn` (warp-uniform) take part.
+template <int J>
+__device__ __forceinline__ void mma3_tf32(float (&d)[J][4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const float (&b0)[J],
+                                          const float (&b1)[J],
+                                          int jn = J) {
+  uint32_t bh[J][2], bl[J][2];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    split_tf32(b0[j], bh[j][0], bl[j][0]);
+    split_tf32(b1[j], bh[j][1], bl[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < jn) mma_tf32(d[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < jn) mma_tf32(d[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < jn) mma_tf32(d[j], ah, bh[j][0], bh[j][1]);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (x0, x1) as three bf16 pairs, head, middle and remainder, whose sum is
+// x to float32's 24 bits (each remainder is exact in float32).  x0 goes in
+// the low half: the lower k index of a fragment register.
+__device__ __forceinline__ void split3_bf16(float x0, float x1,
+                                            uint32_t& p0, uint32_t& p1,
+                                            uint32_t& p2) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  p0 = as_u32(h);
+  p1 = as_u32(m);
+  p2 = as_u32(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
+                                          __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
+         | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d[j] += a·b[j] where a is three bf16 parts (a float32 operand) and
+// each b[j] exact; part by part, the smallest first.
+template <int J>
+__device__ __forceinline__ void mma3_bf16(float (&d)[J][4],
+                                          const uint32_t (&a)[3][4],
+                                          const uint32_t (&b0)[J],
+                                          const uint32_t (&b1)[J]) {
+#pragma unroll
+  for (int part = 2; part >= 0; --part)
+#pragma unroll
+    for (int j = 0; j < J; ++j) mma_bf16(d[j], a[part], b0[j], b1[j]);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// `rows` rows of `width` values (row stride s_row, column stride s_col)
-// into dst [kTile][kStride] as float32, zero elsewhere.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src,
-                                      long long s_row, long long s_col,
-                                      int rows, int width) {
-  for (int i = threadIdx.x; i < kTile * kW; i += kThreads) {
-    const int r = i / kW, c = i % kW;
-    float val = 0.0f;
-    if (r < rows && c < width) val = to_f(src[r * s_row + c * s_col]);
-    dst[r * kStride + c] = val;
-  }
-}
-
-__device__ __forceinline__ float comp(const float4& a, int e) {
-  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-ssm_scan_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [kTile][kStride] q rows
-  float* ks = qs + kTile * kStride;        // [kTile][kStride] k rows
-  float* vs = ks + kTile * kStride;        // [kTile][kStride] v rows
-  float* ps = vs + kTile * kStride;        // [kTile][kStride] weighted scores
-  float* ss = ps + kTile * kStride;        // [kW][kStride] the state S
-  // [chunk] within-chunk cumsum, float64 (8-byte aligned: 5 tiles above)
-  double* cum = reinterpret_cast<double*>(ss + kW * kStride);
-  float* gs = reinterpret_cast<float*>(cum + p.chunk);  // [chunk] gate
-  float* ecum = gs + p.chunk;              // [chunk] exp(cum)
-  float* win = ecum + p.chunk;             // [chunk] exp(total - cum)·g
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H;
-  const T* kb = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[2];
-  const T* qb = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[2];
-  const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[2];
-  const float* ldb = p.ld + b * p.sld[0] + h * p.sld[2];
-  const float* gb = p.g + b * p.sg[0] + h * p.sg[2];
-
-  for (int i = threadIdx.x; i < kW * kW; i += kThreads) {
-    const int n = i / kW, c = i % kW;
-    float val = 0.0f;
-    if (p.s0 != nullptr && n < p.N && c < p.P)
-      val = p.s0[(static_cast<size_t>(bh) * p.N + n) * p.P + c];
-    ss[n * kStride + c] = val;
-  }
-
-  for (int c0 = 0; c0 < p.L; c0 += p.chunk) {
-    const int crow = min(p.chunk, p.L - c0);
-    __syncthreads();                       // the previous chunk is done
-    for (int r = threadIdx.x; r < crow; r += kThreads) {
-      cum[r] = static_cast<double>(
-          ldb[static_cast<long long>(c0 + r) * p.sld[1]]);
-      gs[r] = gb[static_cast<long long>(c0 + r) * p.sg[1]];
-    }
-    __syncthreads();
-    if (threadIdx.x < 32) {                // the cumsum: 32 runs, then scan
-      const int lane = threadIdx.x;
-      const int seg = (crow + 31) / 32;
-      const int lo = min(lane * seg, crow), hi = min(lo + seg, crow);
-      double run = 0.0;
-      for (int r = lo; r < hi; ++r) {
-        run += cum[r];
-        cum[r] = run;
-      }
-      double incl = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double up = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += up;
-      }
-      double before = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) before = 0.0;
-      for (int r = lo; r < hi; ++r) cum[r] += before;
-    }
-    __syncthreads();
-    const double total = cum[crow - 1];
-    for (int r = threadIdx.x; r < crow; r += kThreads) {
-      ecum[r] = expf(static_cast<float>(cum[r]));
-      win[r] = expf(static_cast<float>(total - cum[r])) * gs[r];
-    }
-
-    float ds[4][4];                        // this chunk's state increment
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[i][e] = 0.0f;
-
-    const int n_tiles = (crow + kTile - 1) / kTile;
-    for (int qt = 0; qt < n_tiles; ++qt) {
-      const int r0 = qt * kTile;
-      const int rows_q = min(kTile, crow - r0);
-      __syncthreads();                     // qs and the chunk arrays ready
-      stage(qs, qb + (c0 + r0) * p.sq[1], p.sq[1], p.sq[3], rows_q, p.N);
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-
-      for (int kt = 0; kt <= qt; ++kt) {
-        const int k0 = kt * kTile;
-        const int rows_k = min(kTile, crow - k0);
-        __syncthreads();                   // ks, vs and ps are free
-        stage(ks, kb + (c0 + k0) * p.sk[1], p.sk[1], p.sk[3], rows_k, p.N);
-        stage(vs, vb + (c0 + k0) * p.sv[1], p.sv[1], p.sv[3], rows_k, p.P);
-        __syncthreads();
-
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-        for (int d = 0; d < kW; d += 4) {
-          float4 qv[4], kv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            qv[i] = *reinterpret_cast<const float4*>(
-                qs + (ty + 16 * i) * kStride + d);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            kv[j] = *reinterpret_cast<const float4*>(
-                ks + (tx + 16 * j) * kStride + d);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              float a = s[i][j];
-              a = fmaf(qv[i].x, kv[j].x, a);
-              a = fmaf(qv[i].y, kv[j].y, a);
-              a = fmaf(qv[i].z, kv[j].z, a);
-              a = fmaf(qv[i].w, kv[j].w, a);
-              s[i][j] = a;
-            }
-        }
-        // (q_i·k_j)·exp(cum_i - cum_j)·g_j for j <= i, else 0.
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = ty + 16 * i;
-          const int row = r0 + qi;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int kj = tx + 16 * j;
-            const int key = k0 + kj;
-            float w = 0.0f;
-            if (qi < rows_q && kj < rows_k && key <= row)
-              w = s[i][j] * expf(static_cast<float>(cum[row] - cum[key]))
-                  * gs[key];
-            ps[qi * kStride + kj] = w;
-          }
-        }
-        __syncthreads();
-
-        // y += weighted scores · V
-        for (int t = 0; t < rows_k; t += 4) {
-          float4 pv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            pv[i] = *reinterpret_cast<const float4*>(
-                ps + (ty + 16 * i) * kStride + t);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float4 vv = *reinterpret_cast<const float4*>(
-                vs + (t + u) * kStride + 4 * tx);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float pr = comp(pv[i], u);
-              acc[i][0] = fmaf(pr, vv.x, acc[i][0]);
-              acc[i][1] = fmaf(pr, vv.y, acc[i][1]);
-              acc[i][2] = fmaf(pr, vv.z, acc[i][2]);
-              acc[i][3] = fmaf(pr, vv.w, acc[i][3]);
-            }
-          }
-        }
-        if (kt == qt) {                    // each key tile once: the update
-          for (int t = 0; t < rows_k; ++t) {
-            const float w = win[k0 + t];
-            const float4 vv = *reinterpret_cast<const float4*>(
-                vs + t * kStride + 4 * tx);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float kw = ks[t * kStride + ty + 16 * i] * w;
-              ds[i][0] = fmaf(kw, vv.x, ds[i][0]);
-              ds[i][1] = fmaf(kw, vv.y, ds[i][1]);
-              ds[i][2] = fmaf(kw, vv.z, ds[i][2]);
-              ds[i][3] = fmaf(kw, vv.w, ds[i][3]);
-            }
-          }
-        }
-      }
-
-      // The carry, exp(cum_i)·(q_i S_prev), then y = intra + carry.
-      float inter[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) inter[i][e] = 0.0f;
-      for (int n = 0; n < p.N; ++n) {
-        const float4 sv4 = *reinterpret_cast<const float4*>(
-            ss + n * kStride + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float qn = qs[(ty + 16 * i) * kStride + n];
-          inter[i][0] = fmaf(qn, sv4.x, inter[i][0]);
-          inter[i][1] = fmaf(qn, sv4.y, inter[i][1]);
-          inter[i][2] = fmaf(qn, sv4.z, inter[i][2]);
-          inter[i][3] = fmaf(qn, sv4.w, inter[i][3]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = ty + 16 * i;
-        if (qi >= rows_q) continue;
-        const float ec = ecum[r0 + qi];
-        float* yr = p.y + ((static_cast<size_t>(b) * p.L + c0 + r0 + qi)
-                           * p.H + h) * p.P;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 4 * tx + e;
-          if (col < p.P) yr[col] = acc[i][e] + inter[i][e] * ec;
-        }
-      }
-    }
-
-    __syncthreads();                       // every carry has read S_prev
-    const float etot = expf(static_cast<float>(total));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* sr = ss + (ty + 16 * i) * kStride + 4 * tx;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sr[e] = sr[e] * etot + ds[i][e];
-    }
+// The chunk's inclusive cumsum of log_decay into cum[0, crow) (float64) and
+// its gate into gs[0, crow).  Ends with the block synchronised.
+__device__ void chunk_cumsum(double* cum, float* gs, const float* ldb,
+                             long long s_ld, const float* gb, long long s_g,
+                             int crow) {
+  for (int r = threadIdx.x; r < crow; r += blockDim.x) {
+    cum[r] = static_cast<double>(ldb[r * s_ld]);
+    gs[r] = gb[r * s_g];
   }
   __syncthreads();
-
-  for (int i = threadIdx.x; i < p.N * p.P; i += kThreads) {
-    const int n = i / p.P, c = i % p.P;
-    p.s_out[static_cast<size_t>(bh) * p.N * p.P + i] = ss[n * kStride + c];
+  if (threadIdx.x < 32) {                  // 32 runs, then a shuffle scan
+    const int lane = threadIdx.x;
+    const int seg = (crow + 31) / 32;
+    const int lo = min(lane * seg, crow), hi = min(lo + seg, crow);
+    double run = 0.0;
+    for (int r = lo; r < hi; ++r) {
+      run += cum[r];
+      cum[r] = run;
+    }
+    double incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double up = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += up;
+    }
+    double before = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) before = 0.0;
+    for (int r = lo; r < hi; ++r) cum[r] += before;
   }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// Phase 1: dS_c = (K∘w)ᵀ V, one 64 x 64 tile of it a block
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+ssm_chunk_state_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunk_pad = round_up(p.chunk, kRows);
+  double* cum = reinterpret_cast<double*>(smem_raw);
+  float* gw = reinterpret_cast<float*>(cum + chunk_pad);   // g, then w
+  T* ring = reinterpret_cast<T*>(gw + chunk_pad);          // [2][k, v]
+  constexpr int kTileElems = kRows * kSlab;
+
+  const int bh = blockIdx.x, c = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_p = (p.P + kPT - 1) / kPT;
+  const int n0 = (blockIdx.z / n_p) * kNT, p0 = (blockIdx.z % n_p) * kPT;
+  const int c0 = c * p.chunk, crow = min(p.chunk, p.L - c0);
+  const T* kb = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[2]
+                + c0 * p.sk[1] + n0 * p.sk[3];
+  const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[2]
+                + c0 * p.sv[1] + p0 * p.sv[3];
+  const int wn = min(kNT, p.N - n0), wp = min(kPT, p.P - p0);
+  auto issue = [&](int sl) {
+    T* ks = ring + (sl & 1) * 2 * kTileElems;
+    const int j0 = sl * kRows, rows = min(kRows, crow - j0);
+    stage(ks, kSlab, kb + j0 * p.sk[1], p.sk[1], p.sk[3], rows, wn, kRows,
+          kNT, p.vec_k);
+    stage(ks + kTileElems, kSlab, vb + j0 * p.sv[1], p.sv[1], p.sv[3], rows,
+          wp, kRows, kPT, p.vec_v);
+    cp_async_commit();
+  };
+  issue(0);
+
+  chunk_cumsum(cum, gw, p.ld + b * p.sld[0] + h * p.sld[2] + c0 * p.sld[1],
+               p.sld[1], p.g + b * p.sg[0] + h * p.sg[2] + c0 * p.sg[1],
+               p.sg[1], crow);
+  const double total = cum[crow - 1];
+  if (blockIdx.z == 0) {                   // for phases 2 and 3
+    const size_t at = (static_cast<size_t>(bh) * p.C + c) * chunk_pad;
+    for (int r = threadIdx.x; r < crow; r += kThreads) {
+      p.cum[at + r] = cum[r];
+      p.gate[at + r] = gw[r];
+    }
+    if (threadIdx.x == 0)
+      p.etot[bh * p.C + c] = expf(static_cast<float>(total));
+  }
+  for (int r = threadIdx.x; r < chunk_pad; r += kThreads)
+    gw[r] = r < crow ? expf(static_cast<float>(total - cum[r])) * gw[r]
+                     : 0.0f;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nr = (warp & 3) * 16;          // the warp's 16 rows n
+  const int pc = (warp >> 2) * 32;         // and 32 columns p
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  const int n_sl = (crow + kRows - 1) / kRows;
+  for (int sl = 0; sl < n_sl; ++sl) {
+    if (sl + 1 < n_sl) {
+      issue(sl + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                       // slab sl (and gw) ready
+    const T* ks = ring + (sl & 1) * 2 * kTileElems;
+    const T* vs = ks + kTileElems;
+    const float* w = gw + sl * kRows;
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll 2
+      for (int kk = 0; kk < kRows; kk += 8) {
+        // A[n][j] = k_j[n]·w_j, read transposed from the k slab.
+        const float* kp = ks + (kk + t) * kSlab + nr + g;
+        const float w0 = w[kk + t], w1 = w[kk + t + 4];
+        uint32_t ah[4], al[4];
+        split_tf32(kp[0] * w0, ah[0], al[0]);
+        split_tf32(kp[8] * w0, ah[1], al[1]);
+        split_tf32(kp[4 * kSlab] * w1, ah[2], al[2]);
+        split_tf32(kp[4 * kSlab + 8] * w1, ah[3], al[3]);
+        const float* vp = vs + (kk + t) * kSlab + pc + g;
+        float b0[4], b1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          b0[j] = vp[8 * j];
+          b1[j] = vp[4 * kSlab + 8 * j];
+        }
+        mma3_tf32(acc, ah, al, b0, b1);
+      }
+    } else {
+#pragma unroll 2
+      for (int kk = 0; kk < kRows; kk += 16) {
+        const int r = kk + 2 * t;
+        const T* kp = ks + r * kSlab + nr + g;
+        const float w0 = w[r], w1 = w[r + 1], w8 = w[r + 8],
+                    w9 = w[r + 9];
+        uint32_t a[3][4];
+        split3_bf16(to_f(kp[0]) * w0, to_f(kp[kSlab]) * w1, a[0][0],
+                    a[1][0], a[2][0]);
+        split3_bf16(to_f(kp[8]) * w0, to_f(kp[kSlab + 8]) * w1, a[0][1],
+                    a[1][1], a[2][1]);
+        split3_bf16(to_f(kp[8 * kSlab]) * w8, to_f(kp[9 * kSlab]) * w9,
+                    a[0][2], a[1][2], a[2][2]);
+        split3_bf16(to_f(kp[8 * kSlab + 8]) * w8,
+                    to_f(kp[9 * kSlab + 8]) * w9, a[0][3], a[1][3], a[2][3]);
+        const T* vp = vs + r * kSlab + pc + g;
+        uint32_t b0[4], b1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          b0[j] = pack2(vp[8 * j], vp[kSlab + 8 * j]);
+          b1[j] = pack2(vp[8 * kSlab + 8 * j], vp[9 * kSlab + 8 * j]);
+        }
+        mma3_bf16(acc, a, b0, b1);
+      }
+    }
+    __syncthreads();                       // the slab's stage is free
+  }
+
+  float* out = p.ds + (static_cast<size_t>(bh) * p.C + c) * p.N * p.P;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + nr + g + (e >= 2 ? 8 : 0);
+      const int col = p0 + pc + 8 * j + 2 * t + (e & 1);
+      if (n < p.N && col < p.P)
+        out[static_cast<size_t>(n) * p.P + col] = acc[j][e];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Phase 2: S_c = exp(total_c)·S_{c-1} + dS_c, in chunk order
+// ---------------------------------------------------------------------------
+// V elements a thread: 4 (float4) where N·P is a multiple of 4, else 1.
+template <int V>
+__global__ void __launch_bounds__(kPassThreads)
+ssm_state_pass_kernel(Params p) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  const int bh = blockIdx.x;
+  const int nv = p.N * p.P / V;            // vectors of one state
+  const int e = blockIdx.y * kPassThreads + threadIdx.x;
+  if (e >= nv) return;
+  Vec s;
+  float* sf = reinterpret_cast<float*>(&s);
+  if (p.s0 != nullptr) {
+    s = reinterpret_cast<const Vec*>(p.s0)[static_cast<size_t>(bh) * nv + e];
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) sf[u] = 0.0f;
+  }
+  Vec* d = reinterpret_cast<Vec*>(p.ds) + static_cast<size_t>(bh) * p.C * nv
+           + e;
+  const float* et = p.etot + bh * p.C;
+  for (int c0 = 0; c0 < p.C; c0 += 4) {    // 4 chunks' loads in flight
+    Vec inc[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c0 + c < p.C) inc[c] = d[static_cast<size_t>(c0 + c) * nv];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c0 + c < p.C) {
+        d[static_cast<size_t>(c0 + c) * nv] = s;   // S_{c-1}, for phase 3
+        const float decay = et[c0 + c];
+        const float* xf = reinterpret_cast<const float*>(&inc[c]);
+#pragma unroll
+        for (int u = 0; u < V; ++u) sf[u] = sf[u] * decay + xf[u];
+      }
+  }
+  reinterpret_cast<Vec*>(p.s_out)[static_cast<size_t>(bh) * nv + e] = s;
+}
+
+// ---------------------------------------------------------------------------
+// Phase 3: y for 64 rows of a chunk and a P tile
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+ssm_chunk_scan_kernel(Params p) {
+  using Lay = Layout<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunk_pad = round_up(p.chunk, kRows);
+  const int npad = round_up(p.N, Lay::kStep);
+  const int qs_stride = npad + Lay::kQPad;
+  constexpr int VS = Lay::kVS, SS = Lay::kSS;
+  const int kv_elems = kRows * qs_stride + kRows * VS;
+  const int stage_bytes = max(kv_elems * static_cast<int>(sizeof(T)),
+                              npad * SS * 4);
+  double* cum = reinterpret_cast<double*>(smem_raw);
+  float* gs = reinterpret_cast<float*>(cum + chunk_pad);
+  float* ecum = gs + chunk_pad;                            // [kRows]
+  T* qs = reinterpret_cast<T*>(ecum + kRows);              // [kRows][QS]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      qs + kRows * qs_stride);                             // 2 stages
+
+  const int bh = blockIdx.x, c = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_p = (p.P + kPT - 1) / kPT;
+  const int n_q = (p.chunk + kRows - 1) / kRows;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.z) / n_p;
+  const int p0 = (blockIdx.z % n_p) * kPT;
+  const int c0 = c * p.chunk, crow = min(p.chunk, p.L - c0);
+  const int r0 = qt * kRows;
+  if (r0 >= crow) return;
+  const int rows_q = min(kRows, crow - r0);
+  const int wp = min(kPT, p.P - p0);
+  const bool carry = c > 0 || p.s0 != nullptr;
+
+  const T* kb = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[2]
+                + c0 * p.sk[1];
+  const T* qb = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[2]
+                + c0 * p.sq[1];
+  const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[2]
+                + c0 * p.sv[1] + p0 * p.sv[3];
+  stage(qs, qs_stride, qb + r0 * p.sq[1], p.sq[1], p.sq[3], rows_q, p.N,
+        kRows, npad, p.vec_q);
+  {                                        // the chunk's cum and gate, rows
+    const size_t at = (static_cast<size_t>(bh) * p.C + c) * chunk_pad;
+    const int rows = r0 + kRows;           // [0, r0 + 64): 16-byte pieces
+    for (int i = threadIdx.x; i < rows / 2; i += kThreads)
+      cp_async16(cum + 2 * i, p.cum + at + 2 * i, 16);
+    for (int i = threadIdx.x; i < rows / 4; i += kThreads)
+      cp_async16(gs + 4 * i, p.gate + at + 4 * i, 16);
+  }
+  float* sp = reinterpret_cast<float*>(ring + stage_bytes);   // stage 1
+  if (carry)
+    stage(sp, SS, p.ds + (static_cast<size_t>(bh) * p.C + c) * p.N * p.P
+                  + p0, static_cast<long long>(p.P), 1LL, p.N, wp, npad,
+          kPT, (p.P & 3) == 0);
+  cp_async_commit();
+  auto issue = [&](int kt) {
+    T* ks = reinterpret_cast<T*>(ring + (kt & 1) * stage_bytes);
+    const int j0 = kt * kRows, rows = min(kRows, crow - j0);
+    stage(ks, qs_stride, kb + j0 * p.sk[1], p.sk[1], p.sk[3], rows, p.N,
+          kRows, npad, p.vec_k);
+    stage(ks + kRows * qs_stride, VS, vb + j0 * p.sv[1], p.sv[1], p.sv[3],
+          rows, wp, kRows, kPT, p.vec_v);
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // Warps w and w + 4 share the 16 query rows qr; each takes half of every
+  // key tile (32 keys from kh) and of the carry's k-steps, and the two
+  // partial sums meet at the end.
+  const int qr = (warp & 3) * 16, kh = (warp >> 2) * 32;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  cp_async_wait<1>();                      // q, cum, gate and S_{c-1}
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows_q; i += kThreads)
+    ecum[i] = expf(static_cast<float>(cum[r0 + i]));
+  __syncthreads();
+  if (carry) {                             // acc = exp(cum_i)·(q_i S_{c-1})
+    for (int k0 = (warp >> 2) * Lay::kStep; k0 < npad;
+         k0 += 2 * Lay::kStep) {
+      if constexpr (sizeof(T) == 4) {
+        const float* qa = qs + (qr + g) * qs_stride + k0 + t;
+        uint32_t ah[4], al[4];
+        split_tf32(qa[0], ah[0], al[0]);
+        split_tf32(qa[8 * qs_stride], ah[1], al[1]);
+        split_tf32(qa[4], ah[2], al[2]);
+        split_tf32(qa[8 * qs_stride + 4], ah[3], al[3]);
+        const float* sb = sp + (k0 + t) * SS + g;
+        float b0[8], b1[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          b0[j] = sb[8 * j];
+          b1[j] = sb[4 * SS + 8 * j];
+        }
+        mma3_tf32(acc, ah, al, b0, b1);
+      } else {
+        const T* qa = qs + (qr + g) * qs_stride + k0 + 2 * t;
+        const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * qs_stride),
+                               ld_u32(qa + 8),
+                               ld_u32(qa + 8 * qs_stride + 8)};
+        const float* sb = sp + (k0 + 2 * t) * SS + g;
+#pragma unroll
+        for (int j0 = 0; j0 < 8; j0 += 4) {
+          uint32_t b0[4][3], b1[4][3];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float* sj = sb + 8 * (j0 + j);
+            split3_bf16(sj[0], sj[SS], b0[j][0], b0[j][1], b0[j][2]);
+            split3_bf16(sj[8 * SS], sj[9 * SS], b1[j][0], b1[j][1],
+                        b1[j][2]);
+          }
+#pragma unroll
+          for (int part = 2; part >= 0; --part)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_bf16(acc[j0 + j], a, b0[j][part], b1[j][part]);
+        }
+      }
+    }
+    const float e0 = ecum[min(qr + g, kRows - 1)];
+    const float e8 = ecum[min(qr + g + 8, kRows - 1)];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[j][0] *= e0;
+      acc[j][1] *= e0;
+      acc[j][2] *= e8;
+      acc[j][3] *= e8;
+    }
+  }
+  __syncthreads();                         // stage 1 is free for k and v
+
+  const int n_kt = qt + 1;                 // key tiles up to the diagonal
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {
+      issue(kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                       // tile kt has landed
+    const T* ks = reinterpret_cast<const T*>(ring + (kt & 1) * stage_bytes);
+    const T* vs = ks + kRows * qs_stride;
+    // In the diagonal tile the warp's rows see keys up to qr + 15 only:
+    // nk of its four 8-key n-tiles (0, 2 or 4).
+    const int last = qr + 15 - kh;
+    const int nk = kt < qt ? 4 : last < 0 ? 0 : min(4, last / 8 + 1);
+
+    float s[4][4];                         // scores, 16 rows x 32 keys
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    for (int k0 = 0; k0 < npad; k0 += Lay::kStep) {
+      if constexpr (sizeof(T) == 4) {
+        const float* qa = qs + (qr + g) * qs_stride + k0 + t;
+        uint32_t ah[4], al[4];
+        split_tf32(qa[0], ah[0], al[0]);
+        split_tf32(qa[8 * qs_stride], ah[1], al[1]);
+        split_tf32(qa[4], ah[2], al[2]);
+        split_tf32(qa[8 * qs_stride + 4], ah[3], al[3]);
+        float b0[4], b1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* kp = ks + (kh + 8 * j + g) * qs_stride + k0 + t;
+          b0[j] = kp[0];
+          b1[j] = kp[4];
+        }
+        mma3_tf32(s, ah, al, b0, b1, nk);
+      } else {
+        const T* qa = qs + (qr + g) * qs_stride + k0 + 2 * t;
+        const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * qs_stride),
+                               ld_u32(qa + 8),
+                               ld_u32(qa + 8 * qs_stride + 8)};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < nk) {
+            const T* kp = ks + (kh + 8 * j + g) * qs_stride + k0 + 2 * t;
+            mma_bf16(s[j], a, ld_u32(kp), ld_u32(kp + 8));
+          }
+        }
+      }
+    }
+    // (q_i·k_j)·exp(cum_i - cum_j)·g_j for j <= i, else 0.  Rows past the
+    // chunk get what they get: no row mixes with another, and they are
+    // never stored; a key past the chunk is past every real row.
+    const int i0 = r0 + qr + g;
+    const double ci[2] = {cum[min(i0, crow - 1)], cum[min(i0 + 8, crow - 1)]};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < nk) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int key = kt * kRows + kh + 8 * j + 2 * t + u;
+          const int kc = min(key, crow - 1);
+          const double ck = cum[kc];
+          const float gk = gs[kc];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float& x = s[j][2 * r + u];
+            x = key <= i0 + 8 * r
+                    ? x * expf(static_cast<float>(ci[r] - ck)) * gk : 0.0f;
+          }
+        }
+      }
+    }
+    // acc += weighted scores · V
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j < nk) {
+          // A slots t and t + 4 are the keys 2t and 2t + 1 of n-tile j.
+          uint32_t ah[4], al[4];
+          split_tf32(s[j][0], ah[0], al[0]);
+          split_tf32(s[j][2], ah[1], al[1]);
+          split_tf32(s[j][1], ah[2], al[2]);
+          split_tf32(s[j][3], ah[3], al[3]);
+          const float* vp = vs + (kh + 8 * j + 2 * t) * VS + g;
+          float b0[8], b1[8];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            b0[n] = vp[8 * n];
+            b1[n] = vp[VS + 8 * n];
+          }
+          mma3_tf32(acc, ah, al, b0, b1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        if (j < nk) {                      // keys kh + 8j .. kh + 8j + 15
+          uint32_t a[3][4];
+          split3_bf16(s[j][0], s[j][1], a[0][0], a[1][0], a[2][0]);
+          split3_bf16(s[j][2], s[j][3], a[0][1], a[1][1], a[2][1]);
+          split3_bf16(s[j + 1][0], s[j + 1][1], a[0][2], a[1][2], a[2][2]);
+          split3_bf16(s[j + 1][2], s[j + 1][3], a[0][3], a[1][3], a[2][3]);
+          const T* vp = vs + (kh + 8 * j + 2 * t) * VS + g;
+          uint32_t b0[8], b1[8];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            b0[n] = pack2(vp[8 * n], vp[VS + 8 * n]);
+            b1[n] = pack2(vp[8 * VS + 8 * n], vp[9 * VS + 8 * n]);
+          }
+          mma3_bf16(acc, a, b0, b1);
+        }
+      }
+    }
+    __syncthreads();                       // the tile's stage is free
+  }
+
+  // The second half's partial sums through the free ring, fragment by
+  // fragment, into the first half's.
+  float* red = reinterpret_cast<float*>(ring) + (warp & 3) * 8 * 4 * 32
+               + lane;
+  if (kh) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(j * 4 + e) * 32] = acc[j][e];
+  }
+  __syncthreads();
+  if (kh) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] += red[(j * 4 + e) * 32];
+      const int i = r0 + qr + g + (e >= 2 ? 8 : 0);
+      const int col = p0 + 8 * j + 2 * t + (e & 1);
+      if (i < crow && col < p.P)
+        p.y[((static_cast<size_t>(b) * p.L + c0 + i) * p.H + h) * p.P + col]
+            = acc[j][e];
+    }
+}
+
+// Shared bytes of phases 1 and 3 (kernel.py's `smem_bytes` says the same).
+template <typename T>
+size_t state_smem(const Params& p) {
+  const int chunk_pad = round_up(p.chunk, kRows);
+  return 12 * static_cast<size_t>(chunk_pad)
+         + 2 * 2 * kRows * kSlab * sizeof(T);
 }
 
 template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  // Five float tiles, the float64 cumsum and three float arrays a chunk.
-  const size_t smem = sizeof(float) * (5 * static_cast<size_t>(kTile)
-                                       * kStride
-                                       + 5 * static_cast<size_t>(p.chunk));
+size_t scan_smem(const Params& p) {
+  using Lay = Layout<T>;
+  const int chunk_pad = round_up(p.chunk, kRows);
+  const int npad = round_up(p.N, Lay::kStep);
+  const int qs_stride = npad + Lay::kQPad;
+  const size_t kv = (kRows * qs_stride + kRows * Lay::kVS) * sizeof(T);
+  const size_t s_bytes = static_cast<size_t>(npad) * Lay::kSS * 4;
+  const size_t st = kv > s_bytes ? kv : s_bytes;
+  return 12 * static_cast<size_t>(chunk_pad) + 4 * kRows
+         + kRows * qs_stride * sizeof(T) + 2 * st;
+}
+
+// phases: bit 0 chunk state, bit 1 state passing, bit 2 chunk scan (7 for
+// the function; one bit alone times that kernel on the scratch as it is).
+template <typename T>
+int launch(const Params& p, int phases, cudaStream_t stream) {
+  const size_t sm1 = state_smem<T>(p), sm3 = scan_smem<T>(p);
+  if (sm1 > kSmemLimit || sm3 > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      ssm_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ssm_chunk_state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sm1));
   if (e != cudaSuccess) return static_cast<int>(e);
-  ssm_scan_kernel<T><<<p.B * p.H, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  e = cudaFuncSetAttribute(ssm_chunk_scan_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(sm3));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_p = (p.P + kPT - 1) / kPT;
+  const int n_n = (p.N + kNT - 1) / kNT;
+  const int n_q = (p.chunk + kRows - 1) / kRows;
+  const unsigned bh = static_cast<unsigned>(p.B * p.H);
+  if (phases & 1) {
+    ssm_chunk_state_kernel<T><<<dim3(bh, p.C, n_n * n_p), kThreads, sm1,
+                                stream>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (phases & 2) {
+    const int np = p.N * p.P;
+    if (np % 4 == 0)
+      ssm_state_pass_kernel<4><<<dim3(bh, (np / 4 + kPassThreads - 1)
+                                              / kPassThreads),
+                                 kPassThreads, 0, stream>>>(p);
+    else
+      ssm_state_pass_kernel<1><<<dim3(bh, (np + kPassThreads - 1)
+                                          / kPassThreads),
+                                 kPassThreads, 0, stream>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (phases & 4) {
+    ssm_chunk_scan_kernel<T><<<dim3(bh, p.C, n_q * n_p), kThreads, sm3,
+                               stream>>>(p);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue for a shape the kernel does not take
-// (N or P outside [1, 64], an empty input, chunk < 1).  bf16 != 0: k, q and
-// v are bfloat16, else float32.  `strides` (host memory, in elements): k's
-// four, q's four, v's four, log_decay's three and gate's three.  s0 is a
-// contiguous float32 [B, H, N, P] or null; y [B, L, H, P] and s_out
-// [B, H, N, P] are contiguous float32.  The caller passes chunk <= L.
+// Launches the three kernels on `stream`; returns the first
+// cudaGetLastError() that is not 0 (0 on success), or
+// cudaErrorInvalidValue for a shape the kernels do not take (an empty
+// input, chunk outside [1, L], more than 65535 chunks, or more shared
+// memory than a block may have).  bf16 != 0: k, q and v are bfloat16,
+// else float32.  `strides` (host memory, in elements): k's four, q's
+// four, v's four, log_decay's three and gate's three.  vec: bit 0 k, bit
+// 1 q, bit 2 v may be copied in 16-byte pieces (last stride 1, the others
+// and the base 16-byte aligned).  s0 is a contiguous float32 [B, H, N, P]
+// or null; y [B, L, H, P] and s_out [B, H, N, P] are contiguous float32;
+// ds [B, H, C, N, P], etot [B, H, C] and gate [B, H, C, chunk_pad] are
+// float32 scratch and cum [B, H, C, chunk_pad] float64 scratch, C =
+// ceil(L / chunk), chunk_pad = chunk rounded up to a multiple of 64.
+// phases selects the kernels to launch (7: all three, the function).
 extern "C" int ssm_scan_launch(const void* k, const void* q, const void* v,
                                const void* ld, const void* g, const void* s0,
-                               void* y, void* s_out, const long long* strides,
-                               int bf16, int B, int L, int H, int N, int P,
-                               int chunk, void* stream) {
-  if (B < 1 || L < 1 || H < 1 || N < 1 || N > kW || P < 1 || P > kW
-      || chunk < 1 || chunk > L)
+                               void* y, void* s_out, void* ds, void* etot,
+                               void* cum, void* gate,
+                               const long long* strides, int bf16, int vec,
+                               int B, int L, int H, int N, int P, int chunk,
+                               int phases, void* stream) {
+  if (B < 1 || L < 1 || H < 1 || N < 1 || P < 1 || chunk < 1 || chunk > L)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.k = k;
@@ -374,6 +907,10 @@ extern "C" int ssm_scan_launch(const void* k, const void* q, const void* v,
   p.s0 = static_cast<const float*>(s0);
   p.y = static_cast<float*>(y);
   p.s_out = static_cast<float*>(s_out);
+  p.ds = static_cast<float*>(ds);
+  p.etot = static_cast<float*>(etot);
+  p.cum = static_cast<double*>(cum);
+  p.gate = static_cast<float*>(gate);
   for (int i = 0; i < 4; ++i) {
     p.sk[i] = strides[i];
     p.sq[i] = strides[4 + i];
@@ -389,6 +926,12 @@ extern "C" int ssm_scan_launch(const void* k, const void* q, const void* v,
   p.N = N;
   p.P = P;
   p.chunk = chunk;
+  p.C = (L + chunk - 1) / chunk;
+  if (p.C > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  p.vec_k = vec & 1;
+  p.vec_q = (vec >> 1) & 1;
+  p.vec_v = (vec >> 2) & 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, st) : launch<float>(p, st);
+  return bf16 ? launch<__nv_bfloat16>(p, phases, st)
+              : launch<float>(p, phases, st);
 }

@@ -48,7 +48,11 @@ def split_plan(batch, n_kv, t, n_sm):
     One block per (batch, KV head, split); the splits aim at two waves of
     blocks on ``n_sm`` SMs, a whole number of 64-slot tiles each, none
     empty, and one split when ``batch·n_kv`` alone fills two waves.  It
-    depends on T only, never on ``pos``, so a call never waits on the host.
+    reads T, ``batch·n_kv`` and the card's SM count, never ``pos``, so a
+    call never waits on the host.  The combine adds the splits in order, so
+    a request's outputs may change in the last bits with the batch it
+    rides in or with the card it runs on (ROADMAP C6); all stay within
+    the kernel's tolerance.
     """
     n_tiles = -(-t // TILE)
     want = -(-2 * n_sm // max(batch * n_kv, 1))

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["linear_scan_ref", "ssm_scan_ref"]
+__all__ = ["linear_scan_ref", "ssm_scan_ref", "three_phase_scan_ref"]
 
 
 def linear_scan_ref(k, v, q, log_decay, gate, *, chunk: int,
@@ -78,3 +78,44 @@ def linear_scan_ref(k, v, q, log_decay, gate, *, chunk: int,
 def ssm_scan_ref(k, v, q, log_decay, gate, *, chunk: int = 256):
     """y only, as ``repro.kernels.ssm_scan.ref.ssm_scan_ref``."""
     return linear_scan_ref(k, v, q, log_decay, gate, chunk=chunk)[0]
+
+
+def three_phase_scan_ref(k, v, q, log_decay, gate, *, chunk: int,
+                         initial_state=None):
+    """The CUDA kernel's three phases in float64, unpadded (the last chunk
+    ends at L): per chunk the state increment dS_c = sum_j exp(total -
+    cum_j) g_j k_j v_jᵀ; the states passed in chunk order, S_c =
+    exp(total_c)·S_{c-1} + dS_c; then each chunk's y_i = sum_{j<=i}
+    (q_i·k_j) exp(cum_i - cum_j) g_j v_j + exp(cum_i)·(q_i S_{c-1}).
+    Same arguments and outputs as :func:`linear_scan_ref`, in float64."""
+    f = lambda x: x.to(torch.float64)
+    k, v, q, ld, g = map(f, (k, v, q, log_decay, gate))
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    bounds = [(c0, min(c0 + chunk, l)) for c0 in range(0, l, chunk)]
+    cums, d_states = [], []
+    for c0, c1 in bounds:                              # 1. chunk states
+        cum = torch.cumsum(ld[:, c0:c1], dim=1)        # [B,Lc,H]
+        w = torch.exp(cum[:, -1:] - cum) * g[:, c0:c1]
+        d_states.append(torch.einsum("blhn,blhp->bhnp",
+                                     k[:, c0:c1] * w[..., None], v[:, c0:c1]))
+        cums.append(cum)
+    s = (torch.zeros((b, h, n, p), dtype=torch.float64, device=k.device)
+         if initial_state is None else f(initial_state))
+    s_prev = []
+    for cum, ds in zip(cums, d_states):                # 2. state passing
+        s_prev.append(s)
+        s = torch.exp(cum[:, -1])[..., None, None] * s + ds
+    y = torch.empty((b, l, h, p), dtype=torch.float64, device=k.device)
+    for (c0, c1), cum, sp in zip(bounds, cums, s_prev):   # 3. chunk scan
+        seg = cum[:, :, None, :] - cum[:, None, :, :]  # [B,i,j,H]
+        lower = torch.ones(c1 - c0, c1 - c0, dtype=torch.bool,
+                           device=k.device).tril()[None, :, :, None]
+        decay = torch.where(lower, torch.exp(torch.where(lower, seg, 0.0)),
+                            0.0) * g[:, None, c0:c1]
+        att = torch.einsum("bihn,bjhn->bijh", q[:, c0:c1], k[:, c0:c1])
+        y[:, c0:c1] = (torch.einsum("bijh,bjhp->bihp", att * decay,
+                                    v[:, c0:c1])
+                       + torch.exp(cum)[..., None]
+                       * torch.einsum("bihn,bhnp->bihp", q[:, c0:c1], sp))
+    return y, s

@@ -185,12 +185,42 @@ C4_REPAIRED = {
     "la2-native-path_cost": (0, 2, False, 0, 1.0, 30, 2.0),
     "la2-padded-path_cost": (5, 2, True, 0, 0.6, 20, 2.0),
     "la2-padded-reward": (3, 2, True, 1, 1.0, 5, 3.0),
+    # ROADMAP C5: the root's reward in the contracted form is right once
+    # the children's leaf means read the speculated node as the native
+    # program's vector lanes round it (root 3 of 15: uncontracted).
+    "la1-native-reward-b2": (3, 1, False, 2, 0.6, 32, 2.0),
+    "la1-native-reward-b3": (3, 1, False, 2, 0.6, 32, 3.0),
 }
 
 
 @pytest.mark.parametrize("case", list(C4_REPAIRED))
 def test_root_diagnostics_take_the_contracted_form(case):
     _check_input(*C4_REPAIRED[case])
+
+
+# Surveyed inputs on which the children's fits differed from the JAX
+# package's (ROADMAP C4), one for each site of the reference's compiled
+# programs the port now follows; each fails with that site reverted.  The
+# speculated node as each consumer rounds it (``lookahead._lookahead_tail``):
+# the leaf means of a native program, uncontracted in the 8-wide vector
+# lanes; the split search's node sums, contracted, for the children and
+# carried to the grandchildren.  The node sums over the 32-point bucket of
+# a padded program, a tree of halves, at the root level and below
+# (``trees._fit_trees``).
+C4_CHILDREN = {
+    "la2-native-leaf-means-vector-lanes": (3, 2, False, 1, 1.0, 2, 2.0),
+    "la2-native-split-sums-contracted-node": (0, 2, False, 1, 0.6, 5, 3.0),
+    "la2-native-grandchildren-split-sums": (2, 2, False, 1, 0.6, 0, 2.0),
+    "la1-padded-root-node-sum-halves": (2, 1, True, 1, 0.6, 6, 2.0),
+    "la2-padded-root-node-sum-halves": (2, 2, True, 2, 0.6, 0, 3.0),
+    "la1-padded-node-sums-halves": (2, 1, True, 2, 1.0, 6, 2.0),
+    "la2-padded-node-sums-halves": (4, 2, True, 1, 1.0, 0, 2.0),
+}
+
+
+@pytest.mark.parametrize("case", list(C4_CHILDREN))
+def test_children_fits_take_the_reference_forms(case):
+    _check_input(*C4_CHILDREN[case])
 
 
 def _survey_part(args):

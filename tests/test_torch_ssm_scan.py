@@ -186,3 +186,198 @@ def test_cuda_tensors_without_a_card_raise_and_never_fall_back(monkeypatch):
             with pytest.raises(RuntimeError, match="nvcc"):
                 call()
     assert tkernel.ssm_scan_cuda.launches == 0
+
+
+# --------------------------------------------------------------------------- #
+# The redesigned kernel's arithmetic, in plain PyTorch on the CPU
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("l,chunk,s0", [(300, 128, True), (200, 64, False)])
+def test_three_phase_model_matches_jax(l, chunk, s0, dtype):
+    """The kernel's decomposition (chunk states, state passing, chunk scan;
+    ``ref.three_phase_scan_ref`` in float64) equals JAX's
+    ``chunked_linear_scan`` at xlstm-125m's mLSTM widths, N = 192 and P =
+    193, over a ragged L with and without an initial state."""
+    arrs = _inputs(1, l, 2, 192, 193, seed=l + chunk)
+    j, t = _both(arrs, dtype)
+    init = (np.random.default_rng(chunk).normal(size=(1, 2, 192, 193))
+            .astype(np.float32) if s0 else None)
+    kw = dict(chunk=chunk)
+    y, s = tref.three_phase_scan_ref(
+        *t, **kw, initial_state=None if init is None else torch.as_tensor(
+            init))
+    assert y.dtype == s.dtype == torch.float64
+    assert y.shape == (1, l, 2, 193) and s.shape == (1, 2, 192, 193)
+    want_y, want_s = jax_scan(*j, **kw, initial_state=None if init is None
+                              else jnp.asarray(init))
+    np.testing.assert_allclose(y.numpy(), _np(want_y), **_tol(dtype))
+    np.testing.assert_allclose(s.numpy(), _np(want_s), **_tol(dtype))
+    # The float64 plain version is the same function to float64 rounding.
+    ey, es = tref.linear_scan_ref(
+        *(x.double() for x in t), **kw, initial_state=None if init is None
+        else torch.as_tensor(init).double())
+    np.testing.assert_allclose(y.numpy(), ey.numpy(), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(s.numpy(), es.numpy(), rtol=1e-9, atol=1e-9)
+
+
+# The card's gate for the kernel against the plain version in float64
+# (chip_smoke.py: SSM_RTOL, SSM_ATOL, per output).
+SSM_RTOL, SSM_ATOL = 1e-5, 1e-6
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero: the card's ``cvt.rna.tf32.f32``, on the int32 view."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _bf16_parts(x):
+    """x as three bf16 values (held in float32) whose sum is x to 24 bits:
+    the kernel's head, middle and remainder."""
+    h = x.to(torch.bfloat16).float()
+    m = (x - h).to(torch.bfloat16).float()
+    return [h, m, (x - h - m).to(torch.bfloat16).float()]
+
+
+def _mm(a, b, form):
+    """a @ b as the card forms it, float32 accumulation: ``split`` takes
+    each operand as a TF32 head and remainder and sums lo·hi, hi·lo and
+    hi·hi (the kernel's float32 form); ``tf32`` one product of the TF32
+    heads (the form the contract forbids); ``bf16`` three bf16 parts of
+    each float32 operand (an operand that is bf16 already has one) with
+    exact products (the kernel's bf16 form)."""
+    if form == "tf32":
+        return _tf32(a) @ _tf32(b)
+    if form == "split":
+        ah, bh = _tf32(a), _tf32(b)
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        return al @ bh + ah @ bl + ah @ bh
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for pa in reversed(_bf16_parts(a)):
+        for pb in reversed(_bf16_parts(b)):
+            out = out + pa @ pb
+    return out
+
+
+def _kernel_arithmetic(k, v, q, ld, g, chunk, form):
+    """The three phases in the kernel's precision: float64 cumsums and
+    decay exponents rounded once to float32 before exp, float32 weights,
+    every product by ``_mm(.., form)``, float32 state passing."""
+    b, l, h, n = k.shape
+    t = lambda x: x.permute(0, 2, 1, 3)                # [B,H,Lc,.]
+    s = torch.zeros((b, h, n, v.shape[-1]))
+    y = torch.empty((b, l, h, v.shape[-1]))
+    for c0 in range(0, l, chunk):
+        c1 = min(c0 + chunk, l)
+        cum = torch.cumsum(ld[:, c0:c1].double(), 1).permute(0, 2, 1)
+        gc = g[:, c0:c1].permute(0, 2, 1)              # [B,H,Lc]
+        kc, vc, qc = t(k[:, c0:c1]), t(v[:, c0:c1]), t(q[:, c0:c1])
+        w = torch.exp((cum[..., -1:] - cum).float()) * gc
+        ds = _mm((kc * w[..., None]).transpose(-1, -2), vc, form)
+        lower = torch.ones(c1 - c0, c1 - c0, dtype=torch.bool).tril()
+        seg = (cum[..., :, None] - cum[..., None, :]).float()
+        att = _mm(qc, kc.transpose(-1, -2), form)
+        wts = torch.where(lower, att * torch.exp(seg.masked_fill(~lower, 0))
+                          * gc[..., None, :], 0.0)
+        yc = (_mm(qc, s, form) * torch.exp(cum.float())[..., None]
+              + _mm(wts, vc, form))
+        y[:, c0:c1] = yc.permute(0, 2, 1, 3)
+        s = s * torch.exp(cum[..., -1].float())[..., None, None] + ds
+    return y, s
+
+
+@pytest.mark.parametrize("form,dtype,holds", [
+    ("split", "float32", True), ("bf16", "bfloat16", True),
+    ("tf32", "float32", False)])
+def test_split_operand_products_meet_the_card_gate(form, dtype, holds):
+    """The kernel's tensor-core arithmetic, emulated in plain PyTorch at
+    zamba2-7b's widths (N = P = 64, chunk 256, L = 1000), meets the card's
+    gate against the plain version in float64 (rtol 1e-5 + 1e-6·max per
+    output): split TF32 for float32 inputs, bf16 parts for bf16 k/q/v.
+    One TF32 product, which the contract forbids, misses it."""
+    arrs = _inputs(1, 1000, 2, 64, 64, seed=64)
+    _, (k, v, q, ld, g) = _both(arrs, dtype)
+    k, v, q = (x.float() for x in (k, v, q))           # bf16 held exactly
+    got = _kernel_arithmetic(k, v, q, ld, g, 256, form)
+    exact = tref.linear_scan_ref(*(x.double() for x in (k, v, q, ld, g)),
+                                 chunk=256)
+    within = []
+    for gt, ex in zip(got, exact):
+        d = (gt.double() - ex).abs()
+        within.append(bool((d <= SSM_RTOL * ex.abs()
+                            + SSM_ATOL * ex.abs().max()).all()))
+    assert all(within) is holds, within
+
+
+def _fake(*shapes, dtype=torch.float32):
+    return [torch.empty(s, dtype=dtype, device="cuda") for s in shapes]
+
+
+@pytest.mark.parametrize("case", [
+    "zamba2-7b", "xlstm-125m", "xlstm-125m bf16", "chunk longer than L",
+    "N past shared memory", "chunk past shared memory", "too many chunks",
+    "chunk 0", "empty", "v shape", "q dtype", "initial_state shape",
+    "cpu tensors"])
+def test_plan_checks_shapes_and_limits(case):
+    """``kernel.plan`` (the wrapper's checks and launch geometry) on fake
+    CUDA tensors: the shapes it takes, with their grids, shared memory and
+    scratch, and each refusal with its reason."""
+    def args(b, l, h, n, p, dtype=torch.float32, stride0=False):
+        with FakeTensorMode():
+            k, q = _fake((b, l, 1 if stride0 else h, n), (b, l, 1 if stride0
+                                                          else h, n),
+                         dtype=dtype)
+            if stride0:
+                k, q = k.expand(b, l, h, n), q.expand(b, l, h, n)
+            v, = _fake((b, l, h, p), dtype=dtype)
+            ld, g = _fake((b, l, h), (b, l, h))
+        return [k, v, q, ld, g]
+
+    plan = tkernel.plan
+    if case == "zamba2-7b":
+        a = args(4, 1000, 112, 64, 64, stride0=True)
+        pl = plan(*a, chunk=256)
+        assert a[0].stride(2) == 0 and pl.vec == 7
+        assert pl.grids == ((448, 4, 1), (448, 4), (448, 4, 4))
+        assert pl.chunks == 4 and max(pl.smem) <= tkernel.SMEM_LIMIT
+        # The chunk states' scratch, dS_c then S_{c-1}: 29 MB.
+        assert 4 * pl.b * pl.h * pl.chunks * pl.n * pl.p == 29_360_128
+    elif case.startswith("xlstm-125m"):
+        dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+        pl = plan(*args(4, 1000, 4, 192, 193, dtype), chunk=256)
+        assert (pl.n, pl.p, pl.bf16) == (192, 193, dtype == torch.bfloat16)
+        assert pl.grids == ((16, 4, 12), (16, 37), (16, 4, 16))
+        assert max(pl.smem) <= tkernel.SMEM_LIMIT
+    elif case == "chunk longer than L":
+        pl = plan(*args(1, 30, 2, 8, 8), chunk=256)
+        assert (pl.chunk, pl.chunks) == (30, 1)
+    else:
+        a, kw, err, match = args(1, 64, 2, 16, 16), dict(chunk=16), \
+            ValueError, None
+        if case == "N past shared memory":
+            a, match = args(1, 64, 2, 400, 16), "shared memory"
+        elif case == "chunk past shared memory":
+            a, kw, match = args(1, 40000, 1, 16, 16), dict(chunk=20000), \
+                "shared memory"
+        elif case == "too many chunks":
+            a, kw, match = args(1, 70000, 1, 4, 4), dict(chunk=1), \
+                "grid dimension"
+        elif case == "chunk 0":
+            kw, match = dict(chunk=0), "positive"
+        elif case == "empty":
+            a, match = args(1, 64, 2, 0, 16), "empty"
+        elif case == "v shape":
+            a[1], match = args(1, 32, 2, 16, 16)[1], "v has shape"
+        elif case == "q dtype":
+            a[2] = args(1, 64, 2, 16, 16, torch.bfloat16)[2]
+            err, match = TypeError, "q has dtype"
+        elif case == "initial_state shape":
+            with FakeTensorMode():
+                kw["initial_state"], = _fake((1, 2, 16, 8))
+            match = "initial_state has shape"
+        elif case == "cpu tensors":
+            a = [torch.as_tensor(x) for x in _inputs(1, 8, 2, 4, 4, 0)]
+            match = "CUDA"
+        with pytest.raises(err, match=match):
+            plan(*a, **kw)
