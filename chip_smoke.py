@@ -11,7 +11,14 @@ Phases, one line each with its times, then two JSON lines:
    kernels whose register budget is their design (``NO_SPILL``);
 3. kernel: the select_step kernel against its plain PyTorch version on
    the card, bitwise, at the shapes the main path gives it (tf-cnn, M =
-   384), with its time, its plain version's time and its bound;
+   384: root S = 1, depth 1 S = 1152, depth 2 S = 3456, with and without
+   censoring, padded to the bucket, a ragged S, random forests) and
+   beyond them (16 trees of depth 6, M = 377, y* over signed zeros and
+   ties), each with its launch plan (grid, lanes per state, states a
+   block, shared bytes, registers), its device time (``ms``: launches
+   replayed from a CUDA graph; ``launch_ms``: launched back to back from
+   the host), the main path's launches also at other lanes per state, its
+   plain version's time and its bound;
 4. ops: the kernel entry point ``repro_torch.kernels`` — tree_predict and
    gh_ei on the forests and root posterior of a real tf-cnn selection
    step, flash_attention on a gemma2-9b prefill (S = T = 8192, local,
@@ -82,6 +89,7 @@ os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_BUILD, "triton"))
 
 import gc  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import pathlib  # noqa: E402
 import re  # noqa: E402
 import statistics  # noqa: E402
@@ -128,6 +136,29 @@ def _launch_ms(launch, n: int = 50, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _graph_ms(launch, n: int = 20, reps: int = 10) -> float:
+    """Device time of one kernel launch without the host's: ``n`` launches
+    captured in a CUDA graph, replayed ``reps`` times between two CUDA
+    events.  ``launch`` must launch on the current stream when called (the
+    capture stream inside the capture)."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * reps)
 
 
 def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -211,20 +242,52 @@ def _pad_call(args, kw, m_pad, device):
              u2, t_max, floor, xi), dict(kw, cens=cens2, valid=valid))
 
 
-def _random_forest_call(args, kw, seed, device):
+def _random_forest_call(args, kw, seed, device, n_trees=None, depth=None):
     """The call with random forests: random features, thresholds with a
-    share of +inf (degenerate splits), random leaves."""
+    share of +inf (degenerate splits), random leaves; ``n_trees`` and
+    ``depth`` (default: the call's) set another geometry."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     feat, thr, leaf = args[:3]
+    s_dim = feat.shape[0]
+    n_trees = n_trees or feat.shape[1]
+    depth = depth or feat.shape[2]
+    shape = (s_dim, n_trees, depth, 2 ** (depth - 1))
     n_feat = args[7].shape[1]
-    feat2 = torch.randint(0, n_feat, feat.shape, generator=g,
-                          dtype=torch.int32)
-    thr2 = torch.rand(thr.shape, generator=g)
-    thr2[torch.rand(thr.shape, generator=g) < 0.2] = float("inf")
-    leaf2 = torch.rand(leaf.shape, generator=g) * 3.0 + 0.05
+    feat2 = torch.randint(0, n_feat, shape, generator=g, dtype=torch.int32)
+    thr2 = torch.rand(shape, generator=g)
+    thr2[torch.rand(shape, generator=g) < 0.2] = float("inf")
+    leaf2 = torch.rand((s_dim, n_trees, 2 ** depth), generator=g) * 3.0 + 0.05
     return ((feat2.to(device), thr2.to(device), leaf2.to(device))
             + tuple(args[3:])), dict(kw)
+
+
+def _cut_points(args, kw, m):
+    """The call on the first ``m`` points of the space."""
+    feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor, xi = args
+    cut = lambda a: None if a is None else a[..., :m].contiguous()
+    return ((feat, thr, leaf, cut(y), cut(obs), beta, bf,
+             points[:m].contiguous(), cut(u), t_max, floor, xi),
+            dict(kw, cens=cut(kw.get("cens")), valid=cut(kw.get("valid"))))
+
+
+def _signed_zero_call(args, kw):
+    """The call with y* on its fallback (no best feasible): in even states
+    every observed y is a zero, -0.0 and +0.0 in turn, so y*'s maximum over
+    them is a zero of either sign; in odd states every observed y is 1.25,
+    a tie at the maximum.  Every third state has no budget left, so no
+    candidate: its pick is the lowest index."""
+    import torch
+    feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor, xi = args
+    s_dim, m_dim = y.shape
+    zeros = torch.tensor([-0.0, 0.0], device=y.device)[
+        torch.arange(m_dim, device=y.device) % 2].expand(s_dim, m_dim)
+    even = (torch.arange(s_dim, device=y.device) % 2 == 0)[:, None]
+    y2 = torch.where(obs, torch.where(even, zeros, 1.25), y).contiguous()
+    broke = torch.arange(s_dim, device=y.device) % 3 == 0
+    beta2 = torch.where(broke, 0.0, beta).contiguous()
+    return ((feat, thr, leaf, y2, obs, beta2, torch.full_like(bf, math.inf),
+             points, u, t_max, floor, xi), dict(kw))
 
 
 def _slice_states(args, kw, n):
@@ -233,6 +296,16 @@ def _slice_states(args, kw, n):
     cut = lambda a: (a[:n].contiguous() if isinstance(a, torch.Tensor)
                      and a.dim() >= 1 and a.shape[0] == s_dim else a)
     return tuple(cut(a) for a in args), {k: cut(v) for k, v in kw.items()}
+
+
+def _select_step_plan(args, kw):
+    """The launch geometry the wrapper plans for this call."""
+    from repro_torch.kernels.select_step import kernel
+    s_dim, n_trees, depth = args[0].shape[:3]
+    m_dim, n_feat = args[7].shape
+    return kernel.plan(s_dim, n_trees, depth, m_dim, n_feat,
+                       cens=kw.get("cens") is not None,
+                       sm_count=kernel._sm_count(args[3].device.index))
 
 
 def _bytes_and_ops(args, kw, outs):
@@ -245,16 +318,18 @@ def _bytes_and_ops(args, kw, outs):
     nbytes += sum(t.numel() * t.element_size() for t in outs)
     s_dim, n_trees, depth = args[0].shape[:3]
     m_dim = args[3].shape[1]
-    # Per (state, point): 2·B·D node compares (two descents), 4B + 4 for
-    # the mean/spread chains, ~98 for EI_c (two Phi, two phi, exp_det),
-    # the budget test and the score.
-    ops = s_dim * m_dim * (2 * n_trees * depth + 4 * n_trees + 102)
+    # Per (state, point): B·D node compares (the function descends each
+    # tree once, whatever implements it), 4B + 4 for the mean/spread
+    # chains, ~98 for EI_c (two Phi, two phi, exp_det), the budget test and
+    # the score.
+    ops = s_dim * m_dim * (n_trees * depth + 4 * n_trees + 102)
     return nbytes, ops
 
 
 def phase_kernel(device, tf_job):
     import torch
     from repro_torch.core import GeometryBucket, Settings
+    from repro_torch.kernels import capi
     from repro_torch.kernels.select_step import kernel
     from repro_torch.kernels.select_step.kernel import select_step_cuda
     from repro_torch.kernels.select_step.ref import select_step_ref
@@ -286,6 +361,15 @@ def phase_kernel(device, tf_job):
     variants.append((f"d2_S{m * s.k_gh ** 2}_random_forest", ra, rk))
     ra, rk = _random_forest_call(*root, seed=4, device=device)
     variants.append(("root_S1_random_forest", ra, rk))
+    # Beyond the main path's shapes: another geometry that Settings allows,
+    # M off the warp width, and y*'s maxima over signed zeros and ties.
+    ra, rk = _random_forest_call(*d1, seed=5, device=device, n_trees=16,
+                                 depth=6)
+    variants.append((f"d1_S{m * s.k_gh}_random_forest_B16_D6", ra, rk))
+    for name, (args, kw) in (("root_S1", root), (f"d1_S{m * s.k_gh}", d1)):
+        variants.append((f"{name}_M{m - 7}", *_cut_points(args, kw, m - 7)))
+        variants.append((f"{name}_signed_zero_ties",
+                         *_signed_zero_call(args, kw)))
 
     rows = []
     max_err = 0.0
@@ -308,8 +392,26 @@ def phase_kernel(device, tf_job):
                            f"max abs {diff}, first at {first}: kernel "
                            f"{a[first].item() if first else '?'} plain "
                            f"{b[first].item() if first else '?'}")
+        geo = _select_step_plan(args, kw)
+        regs, local = kernel.attributes(int(args[0].shape[1]))
         cargs, _, keep = kernel.prepare(*args, **kw)
-        ms = _launch_ms(lambda: kernel.launch(cargs))
+        # The stream is the last argument: the current one at each launch,
+        # so that a graph captures the launches.
+        on_stream = lambda a: (lambda: kernel.launch(
+            a[:-1] + (capi.stream(device),)))
+        ms = _graph_ms(on_stream(cargs))
+        launch_ms = _launch_ms(lambda: kernel.launch(cargs))
+        # The main path's three launches also at other lanes per state.
+        ms_wps = {}
+        if not name.endswith(("_nocens", "forest", "ties")) and (
+                "_valid" not in name and "_M" not in name):
+            for wps in (1, 2, 4, 8):
+                if (wps != geo.warps_per_state
+                        and wps <= -(-args[3].shape[1] // 32)):
+                    wargs, _, wkeep = kernel.prepare(*args, **kw,
+                                                     warps_per_state=wps)
+                    ms_wps[wps] = round(_graph_ms(on_stream(wargs)), 5)
+                    del wkeep
         call_ms = _median_ms(lambda: select_step_cuda(*args, **kw))
         plain_ms = _median_ms(lambda: select_step_ref(*args, **kw), reps=20)
         del keep
@@ -322,10 +424,15 @@ def phase_kernel(device, tf_job):
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, bytes=nbytes, ops=ops))
         _line("kernel", case=name, S=args[3].shape[0], M=args[3].shape[1],
+              B=args[0].shape[1], D=args[0].shape[2],
               bitwise="differs" if bad else "equal", ms=f"{ms:.5f}",
-              call_ms=f"{call_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+              launch_ms=f"{launch_ms:.5f}", call_ms=f"{call_ms:.5f}",
+              plain_ms=f"{plain_ms:.5f}",
               bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, bytes=nbytes,
-              ops=ops)
+              ops=ops, grid=geo.grid, lanes_per_state=32 * geo.warps_per_state,
+              states_a_block=geo.groups, threads=geo.threads,
+              smem_bytes=geo.smem, registers=regs, local_bytes=local,
+              ms_by_warps_per_state=_fmt("", ms_wps))
         for b in bad:
             print(f"[kernel]   {name} {b}", flush=True)
             failures.append(f"{name} {b}")
@@ -1636,9 +1743,10 @@ def _op_summary(rows, launches):
 
 # Kernels whose register budget is part of their design: -Xptxas -v must
 # show no spill for any of their instantiations.
-NO_SPILL = ("flash_bf16_kernel", "decode_split_kernel",
-            "decode_combine_kernel", "ssm_chunk_state_kernel",
-            "ssm_state_pass_kernel", "ssm_chunk_scan_kernel")
+NO_SPILL = ("select_step_kernel", "flash_bf16_kernel",
+            "decode_split_kernel", "decode_combine_kernel",
+            "ssm_chunk_state_kernel", "ssm_state_pass_kernel",
+            "ssm_chunk_scan_kernel")
 
 
 def _spills(logs):

@@ -67,6 +67,7 @@ _SCORE_NAMES = ("score", "gain", "ei", "reward", "acq")
 _REDUCTIONS = ("sum", "mean", "std")
 # Functions that fix a reduction's order themselves (each documents it).
 _PINNED_HELPERS = frozenset({"_pinned_sum", "xla_sum", "_seq_sum_by_node",
+                             "_lane_sum_by_node",
                              "_xla_dot", "_seq_sum0", "gh_expect"})
 
 

@@ -66,8 +66,9 @@ class Settings:
     # "auto" | "kernel" | "ref" — see the module docstring.
     fused_selector: str = "auto"
     # The reference's state-block size of its TPU grid.  The CUDA kernel
-    # runs one thread block per state, so the value does not change what
-    # the port computes; the field keeps Settings interchangeable.
+    # plans its own geometry (``kernels.select_step.kernel.plan``), so the
+    # value does not change what the port computes; the field keeps
+    # Settings interchangeable.
     fused_block_states: int = 32
 
 
@@ -117,7 +118,7 @@ def _fit_root(key, y, obs_mask, cens, points, left, thresholds, floor,
     censoring correction made the mean a select."""
     params, assign = trees.fit_forest(
         key, y, obs_mask, points, left, thresholds,
-        n_trees=s.n_trees, depth=s.depth)
+        n_trees=s.n_trees, depth=s.depth, node_sums="lanes")
     preds = params.leaf.gather(1, assign)                       # [B, M]
     mu, sigma, parts = trees.forest_mu_sigma(preds, floor, with_parts=True)
     if cens is not None:
@@ -133,7 +134,8 @@ def _fit_batch_exact(key, y_b, m_b, cens_b, points, left, thresholds, floor,
     ``y_split``: the y the split search reads (``trees.fit_forest``)."""
     params, assign = trees.fit_forest(
         _state_keys(key, y_b.shape[0]), y_b, m_b, points, left, thresholds,
-        n_trees=s.n_trees, depth=s.depth, y_split=y_split)
+        n_trees=s.n_trees, depth=s.depth, y_split=y_split,
+        node_sums="lanes")
     preds = params.leaf.gather(2, assign)                       # [S, B, M]
     mu, sigma, parts = trees.forest_mu_sigma(preds.transpose(0, 1), floor,
                                              with_parts=True)
@@ -150,7 +152,8 @@ def _fit_batch_params(key, y_b, m_b, points, left, thresholds, s: Settings,
     the same key schedule as :func:`_fit_batch_exact`."""
     params, _ = trees.fit_forest(
         _state_keys(key, y_b.shape[0]), y_b, m_b, points, left, thresholds,
-        n_trees=s.n_trees, depth=s.depth, y_split=y_split)
+        n_trees=s.n_trees, depth=s.depth, y_split=y_split,
+        node_sums="lanes")
     return params
 
 
@@ -396,7 +399,7 @@ def _select_next_fused(key, y, obs_mask, beta, points, left, thresholds, u,
     k_root, k_path = prng.split(key)
     params, assign = trees.fit_forest(k_root, y, obs_mask, points, left,
                                       thresholds, n_trees=s.n_trees,
-                                      depth=s.depth)
+                                      depth=s.depth, node_sums="lanes")
     obs, best_feas = _root_common(y, obs_mask, t_max, u, cens)
     score_mode, use_budget = _policy(s)
     lookahead = s.policy == "lynceus" and s.la > 0

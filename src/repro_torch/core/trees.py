@@ -26,10 +26,12 @@ Bit-exactness with the reference, case by case:
 * the per-node ``w·y`` sums that the reference leaves to XLA dots
   (``swy_n`` and the left-branch sums of the split search) follow the
   orders XLA's CPU backend takes: its reduction order at the root
-  (``xla_sum``), point by point for the batched matrix-vector product
-  below it (``_seq_sum_by_node``), and the shape-dependent order of its
-  matrix product (``_xla_dot``).  Both are plain float32 adds, so the fit gives
-  the same bits on the CPU and on the card.
+  (``xla_sum``), below it the order of the matrix-vector product the
+  program compiles to (``fit_forest``'s ``node_sums``: point by point,
+  ``_seq_sum_by_node``, or in 8 lanes, ``_lane_sum_by_node``), and the
+  shape-dependent order of its matrix product (``_xla_dot``).  All are
+  plain float32 adds, so the fit gives the same bits on the CPU and on the
+  card.
 """
 
 from __future__ import annotations
@@ -105,6 +107,35 @@ def _seq_sum_by_node(onehot: torch.Tensor, val: torch.Tensor
     for m in range(1, val.shape[1]):
         acc = acc + onehot[:, m, :] * val[:, m, None]
     return acc
+
+
+# Vector width (float32 lanes) of XLA's CPU matrix-vector products.
+_GEMV_LANES = 8
+
+
+def _lane_sum_by_node(onehot: torch.Tensor, val: torch.Tensor
+                      ) -> torch.Tensor:
+    """``out[r, k] = sum over m of onehot[r, m, k]·val[r, m]`` in the order
+    of XLA's CPU row-major matrix-vector product (``row_major_gemv``, the
+    form the reference's selector programs compile ``onehot.T @ wy`` to):
+    8 lanes, lane j adding the points j, j + 8, j + 16, ... of the whole
+    8-point tiles in order, from 0; the lanes summed as a tree of halves;
+    then the scalar tail (the last M mod 8 points, from 0, in order) added
+    to that.  The 0/1 products are exact, so the order alone decides the
+    bits."""
+    prod = onehot * val[:, :, None]                                  # [R,M,n]
+    m = prod.shape[1]
+    main = m - m % _GEMV_LANES
+    acc = prod.new_zeros(prod.shape[:1] + (_GEMV_LANES,) + prod.shape[2:])
+    for t in range(0, main, _GEMV_LANES):
+        acc = acc + prod[:, t:t + _GEMV_LANES]
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = acc[:, :half] + acc[:, half:]
+    tail = prod.new_zeros(prod.shape[:1] + prod.shape[2:])
+    for t in range(main, m):
+        tail = tail + prod[:, t]
+    return acc[:, 0] + tail
 
 
 def _dot_lanes(rows: int, k: int, j: int) -> int:
@@ -208,15 +239,17 @@ def make_left_table(points, thresholds, device=None) -> torch.Tensor:
     return (points[:, :, None] <= thresholds[None, :, :]).to(torch.float32)
 
 
-# The row width at which the reference's node sums of the split search are
-# trees of halves (read from its compiled padded selector programs).
+# The row width at which the reference's root node sum of the split search
+# is a tree of halves (read from its compiled padded selector programs).
 _BUCKET_ROW = 32
 
 
-def _fit_trees(y, w, left, *, depth: int, min_weight: float, y_split=None):
+def _fit_trees(y, w, left, *, depth: int, min_weight: float, y_split=None,
+               node_sums: str = "points"):
     """Fit N independent trees. y, w: [N, M]; left: [M, F, T].  ``y_split``
     (default ``y``) is the y the split search's node sums read; ``y`` the
-    one the leaf means read (see :func:`fit_forest`).
+    one the leaf means read; ``node_sums`` the order of those sums (see
+    :func:`fit_forest`).
 
     Returns (assign [N, M], leaf [N, 2**depth], feat levels, thr meta)."""
     n_rows, m = w.shape
@@ -240,15 +273,17 @@ def _fit_trees(y, w, left, *, depth: int, min_weight: float, y_split=None):
         onehot = (assign[:, :, None]
                   == torch.arange(n, device=dev)).to(torch.float32)  # [N,M,n]
         sw_n = (onehot * w[:, :, None]).sum(dim=1)                   # [N, n]
-        # Over the 32 points of the geometry bucket the reference's CPU
-        # backend adds each node's row as a tree of halves.  Elsewhere, at
-        # the root every point sits in node 0: XLA folds the one-hot to
-        # ones and the product to a plain reduction; below it adds in point
-        # order (ROADMAP C4).
-        if m == _BUCKET_ROW:
-            swy_n = _pinned_sum(onehot * wys[:, :, None], 1)
+        # At the root every point sits in node 0: XLA folds the one-hot to
+        # ones and the product to a plain reduction, a tree of halves over
+        # the 32 points of the geometry bucket.  Below it the product is a
+        # matrix-vector product, whose order the program's layout decides
+        # (``node_sums``; ROADMAP C4).
+        if lvl == 0 and m == _BUCKET_ROW:
+            swy_n = _pinned_sum(wys, 1)[:, None]
         elif lvl == 0:
             swy_n = xla_sum(wys)[:, None]
+        elif node_sums == "lanes":
+            swy_n = _lane_sum_by_node(onehot, wys)
         else:
             swy_n = _seq_sum_by_node(onehot, wys)
         sl_w = torch.matmul((onehot * w[:, :, None]).transpose(1, 2),
@@ -298,7 +333,8 @@ def _fit_trees(y, w, left, *, depth: int, min_weight: float, y_split=None):
 
 
 def fit_forest(key, y, obs_mask, points, left, thresholds, *, n_trees: int,
-               depth: int, min_weight: float = 1.0, y_split=None):
+               depth: int, min_weight: float = 1.0, y_split=None,
+               node_sums: str = "points"):
     """Fit the bagged forest, for one state or a batch of states.
 
     Args:
@@ -313,6 +349,14 @@ def fit_forest(key, y, obs_mask, points, left, thresholds, *, n_trees: int,
         where the reference's program gives it another rounding of a
         speculated value than the leaf means get
         (``lookahead._lookahead_tail``).
+      node_sums: the order of the split search's per-node ``w·y`` sums
+        below the root, as XLA's CPU backend compiles the reference's
+        ``onehot.T @ wy`` in the program being followed: ``"points"``, its
+        column-major matrix-vector product, point by point (a fit jitted
+        on its own, vmapped or not); ``"lanes"``, its row-major one
+        (:func:`_lane_sum_by_node`), which every fit of the reference's
+        selector programs compiles to (read from their dumps at M = 15,
+        24 and 32, native and padded, root, children and grandchildren).
     Returns:
       (ForestParams, per-tree leaf assignment ``[..., B, M]``).
     """
@@ -331,7 +375,8 @@ def fit_forest(key, y, obs_mask, points, left, thresholds, *, n_trees: int,
         n_states, n_trees, m).reshape(-1, m)
     assign, leaf, feat_lvls, thr_meta = _fit_trees(
         rows(y), w.reshape(-1, m), left, depth=depth, min_weight=min_weight,
-        y_split=None if y_split is None else rows(y_split))
+        y_split=None if y_split is None else rows(y_split),
+        node_sums=node_sums)
     n_rows = n_states * n_trees
     if depth > 0:
         feat = torch.stack(feat_lvls, dim=1)

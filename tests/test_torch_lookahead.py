@@ -205,8 +205,13 @@ def test_root_diagnostics_take_the_contracted_form(case):
 # the leaf means of a native program, uncontracted in the 8-wide vector
 # lanes; the split search's node sums, contracted, for the children and
 # carried to the grandchildren.  The node sums over the 32-point bucket of
-# a padded program, a tree of halves, at the root level and below
-# (``trees._fit_trees``).
+# a padded program: a tree of halves at the root level (``trees._fit_trees``)
+# and, below it, not point order (the ``*-node-sums-halves`` cases).  Below
+# the root every selector program's node sums take the order of XLA's
+# row-major matrix-vector product, 8 lanes over the points
+# (``trees.fit_forest``'s ``node_sums="lanes"``); the ``*-node-sums-lanes``
+# cases are the survey's last input, whose grandchildren (M = 15) differed
+# in point order, at both budgets.
 C4_CHILDREN = {
     "la2-native-leaf-means-vector-lanes": (3, 2, False, 1, 1.0, 2, 2.0),
     "la2-native-split-sums-contracted-node": (0, 2, False, 1, 0.6, 5, 3.0),
@@ -215,6 +220,8 @@ C4_CHILDREN = {
     "la2-padded-root-node-sum-halves": (2, 2, True, 2, 0.6, 0, 3.0),
     "la1-padded-node-sums-halves": (2, 1, True, 2, 1.0, 6, 2.0),
     "la2-padded-node-sums-halves": (4, 2, True, 1, 1.0, 0, 2.0),
+    "la2-native-node-sums-lanes-b2": (4, 2, False, 1, 0.6, 2, 2.0),
+    "la2-native-node-sums-lanes-b3": (4, 2, False, 1, 0.6, 2, 3.0),
 }
 
 

@@ -134,3 +134,50 @@ def test_kernel_demanded_on_cpu_tensors_raises():
         tops.select_step(*targs, T_MAX, FLOOR, **tkw, force="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.select_step_cuda(*targs, T_MAX, FLOOR, **tkw)
+
+
+# The launch plan (pure Python, no card): the tf-cnn main path's three
+# launches (M = 384 points of F = 5 features, B = 10 trees of depth 4, with
+# censoring) on an H100's 132 SMs.
+TF_CNN = dict(n_trees=10, depth=4, m_dim=384, n_feat=5)
+
+
+@pytest.mark.parametrize("s_dim,lanes,groups", [(1, 384, 1), (1152, 64, 5),
+                                                (3456, 64, 6)])
+def test_plan_lanes_per_state(s_dim, lanes, groups):
+    p = tkernel.plan(s_dim, **TF_CNN, cens=True, sm_count=132)
+    assert 32 * p.warps_per_state == lanes
+    assert p.groups == groups
+    assert p.threads == lanes * groups <= tkernel.MAX_THREADS
+    # Every state has a group: the grid's groups cover S, or the grid is
+    # the card's two blocks an SM and its groups stride over the states.
+    assert p.grid * p.groups >= s_dim or p.grid == 2 * 132
+    assert p.smem <= tkernel.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("cens", [False, True])
+def test_plan_shared_bytes(cens):
+    """The shared memory of the depth-2 launch, counted here byte by byte
+    from the kernel's layout (each region rounded up to 16 bytes)."""
+    p = tkernel.plan(3456, **TF_CNN, cens=cens, sm_count=132)
+    points = 384 * 5 * 4 + 384 * 4 + 384          # points tile, u, valid
+    stage = (2 * 10 * 4 * 8 * 4                   # feat, thr [B, D, W]
+             + 10 * 16 * 4                        # leaf [B, L]
+             + 384 * 4 + 384 + (384 if cens else 0))   # y, obs[, cens]
+    group = (2 * stage                            # two stage buffers
+             + 10 * 31 * 8                        # heap: 15 nodes, 16 leaves
+             + 2 * 384 * 4                        # forest sum, sigma
+             + 32 * p.warps_per_state)            # reduction slots
+    assert p.smem == points + p.groups * group
+    # Two blocks an SM (228 KB, 1 KB reserved each).
+    assert 2 * (p.smem + 1024) <= 233472
+
+
+@pytest.mark.parametrize("shape,what", [
+    (dict(n_trees=0), "trees"), (dict(n_trees=17), "trees"),
+    (dict(depth=-1), "depth"), (dict(depth=12), "shared memory"),
+    (dict(n_feat=0), "features"), (dict(n_feat=4096), "shared memory"),
+    (dict(m_dim=0), "point"), (dict(m_dim=16384), "shared memory")])
+def test_plan_refuses_what_the_kernel_does_not_take(shape, what):
+    with pytest.raises(ValueError, match=what):
+        tkernel.plan(3456, **dict(TF_CNN, **shape), cens=True, sm_count=132)
