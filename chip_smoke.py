@@ -2,8 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only tree_predict,gh_ei,masked_argmax
 
-Phases, one line each with its times, then two JSON lines:
+With ``--only`` it builds, runs the named kernels' checks and times of
+phases ops and analysis, and prints no result line (a measurement run).
+Without it, phases one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
 2. build: compiles every CUDA kernel (one ``nvcc`` per source, all
@@ -28,9 +31,14 @@ Phases, one line each with its times, then two JSON lines:
    local ring T = 4096, each full and filling; splits whose slots are all
    dead, every slot dead, a ragged last tile) and at zamba2-7b's shape,
    and ssm_scan at xlstm-125m's mLSTM widths (N = 192, P = 193, float32,
-   held against the plain version in float64 as in phase model).
-   Each case is driven through the op once with the launch counts at 0,
-   then held against the plain version within its tolerance and timed
+   held against the plain version in float64 as in phase model); scale
+   cases, not path shapes, of tree_predict and gh_ei at M = 1 << 20
+   (tf-cnn's F = 5, B = 10, D = 4; K = 3), timed over copies of their
+   inputs that move three times the L2 cache.  Each case is driven
+   through the op once with the launch counts at 0, then held against
+   the plain version within its tolerance and timed (from a CUDA graph,
+   ``ms``, with the host-launched ``launch_ms`` beside it; tree_predict
+   with its launch plan: grid, threads, tile, shared bytes, registers)
    beside its plain version, its bound and, where one PyTorch call
    computes the same function, that call (``library_ms``: SDPA, or a
    compiled ``flex_attention`` for the softcapped and windowed prefills,
@@ -46,8 +54,10 @@ Phases, one line each with its times, then two JSON lines:
 7. analysis: the determinism gate's kernel, masked_argmax, against its
    plain version (both variants; random scores, near-ties, exact ties,
    NaN, -0.0/+0.0, infinities and all-invalid rows at M = 16, 384, 4096
-   and 1 << 20: the index exactly) with its time, the plain version's and
-   the bound; then the gate, ``repro_torch.analysis``'s entry point with
+   and 1 << 20: the index exactly) with its launch plan (grid, threads,
+   scratch, registers), its time from a CUDA graph (at 1 << 20 over
+   copies of the row) and launched from the host, the plain version's
+   and the bound; then the gate, ``repro_torch.analysis``'s entry point with
    ``--all --device cuda``, with the kernel's launch count at 0 before and
    read after; its findings (fixtures and registered programs) held equal
    to the CPU's; and ``python -m repro_torch.analysis --all --device cuda``
@@ -159,6 +169,37 @@ def _graph_ms(launch, n: int = 20, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (n * reps)
+
+
+L2_BYTES = 50 * 2 ** 20
+
+
+def _cold_copies(nbytes: int) -> int:
+    """Copies of a scale case's inputs (and outputs) whose rotation moves
+    three times the card's L2 cache, so that no launch finds its inputs
+    there."""
+    return max(2, -(-3 * L2_BYTES // nbytes))
+
+
+def _in_turn(launch, preps, device=None):
+    """A launch of ``launch`` on each prepared argument tuple of ``preps``
+    in turn.  With ``device`` the stream (each C entry's last argument) is
+    the current one at each launch, so that a CUDA graph captures it."""
+    import itertools
+    from repro_torch.kernels import capi
+    turn = itertools.cycle(preps)
+    if device is None:
+        return lambda: launch(next(turn))
+    return lambda: launch(next(turn)[:-1] + (capi.stream(device),))
+
+
+def _timed(launch, preps, device, n):
+    """(graph ms, host-launched ms) of ``launch`` over ``preps`` in turn,
+    ``n`` launches each way (at least one of each of ``preps``)."""
+    n = max(n, len(preps))
+    ms = _graph_ms(_in_turn(launch, preps, device), n=n)
+    launch_ms = _launch_ms(_in_turn(launch, preps), n=n, warmup=min(3, n))
+    return ms, launch_ms
 
 
 def _median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -329,7 +370,6 @@ def _bytes_and_ops(args, kw, outs):
 def phase_kernel(device, tf_job):
     import torch
     from repro_torch.core import GeometryBucket, Settings
-    from repro_torch.kernels import capi
     from repro_torch.kernels.select_step import kernel
     from repro_torch.kernels.select_step.kernel import select_step_cuda
     from repro_torch.kernels.select_step.ref import select_step_ref
@@ -395,10 +435,7 @@ def phase_kernel(device, tf_job):
         geo = _select_step_plan(args, kw)
         regs, local = kernel.attributes(int(args[0].shape[1]))
         cargs, _, keep = kernel.prepare(*args, **kw)
-        # The stream is the last argument: the current one at each launch,
-        # so that a graph captures the launches.
-        on_stream = lambda a: (lambda: kernel.launch(
-            a[:-1] + (capi.stream(device),)))
+        on_stream = lambda a: _in_turn(kernel.launch, [a], device)
         ms = _graph_ms(on_stream(cargs))
         launch_ms = _launch_ms(lambda: kernel.launch(cargs))
         # The main path's three launches also at other lanes per state.
@@ -500,17 +537,26 @@ class OpCase:
     """One call of a ``repro_torch.kernels`` op: ``run`` goes through the
     public op (the kernel, counted), ``plain`` through ``force="ref"``,
     ``prep``/``launch`` give uncounted launches for timing, ``library`` is
-    one PyTorch call of the same function (or None)."""
+    one PyTorch call of the same function (or None).
+
+    The kernel's ``ms`` is replayed from a CUDA graph (its host-launched
+    time beside it as ``launch_ms``).  ``copies`` > 1 makes
+    ``prep(i)`` prepare the i-th copy of the inputs: the timed launches
+    take the copies in turn, so that a scale case reads its inputs from
+    device memory and not from the L2 cache.  ``plan`` gives the launch
+    plan printed beside the times (grid, threads, shared bytes,
+    registers)."""
 
     def __init__(self, kernel, name, run, plain, prep, launch, compare,
                  nbytes, ops, peak, library=None, reps=50, plain_reps=20,
-                 extra=None):
+                 extra=None, copies=1, plan=None):
         self.kernel, self.name = kernel, name
         self.run, self.plain, self.prep, self.launch = run, plain, prep, launch
         self.compare, self.library = compare, library
         self.nbytes, self.ops, self.peak = nbytes, ops, peak
         self.reps, self.plain_reps = reps, plain_reps
         self.extra = extra or {}
+        self.copies, self.plan = copies, plan
 
 
 def _close(atol, rtol=0.0, exact=()):
@@ -561,8 +607,19 @@ def _per_forest(compare):
     return run
 
 
-def _tree_cases(points, forests, floor, label):
-    """tree_predict over ``points`` for each (feat, thr, leaf) forest."""
+def _tree_plan(points, forest):
+    """The launch plan of tree_predict over ``points`` and its registers."""
+    from repro_torch.kernels.tree_predict import kernel as tp
+    geo = tp.plan(points.shape[0], points.shape[1], *forest[0].shape[:2],
+                  sm_count=tp._sm_count(points.device.index))
+    regs, local = tp.attributes(forest[0].shape[1])
+    return dict(grid=geo.grid, threads=geo.threads, tile=geo.tile,
+                smem_bytes=geo.smem, registers=regs, local_bytes=local)
+
+
+def _tree_cases(points, forests, floor, label, scale=False):
+    """tree_predict over ``points`` for each (feat, thr, leaf) forest; a
+    ``scale`` case times its launches over copies of the points."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.tree_predict import kernel as tp
@@ -570,6 +627,8 @@ def _tree_cases(points, forests, floor, label):
     m_dim = points.shape[0]
     # Inputs once and mu, sigma [M] f32, per forest.
     nbytes = len(forests) * (_tensor_bytes(points, *forests[0]) + 8 * m_dim)
+    copies = _cold_copies(nbytes) if scale else 1
+    xs = [points] + [points.clone() for _ in range(copies - 1)]
     # One descent per tree (a compare and an index step a level), then the
     # mean and the two-pass spread over the trees.
     ops = len(forests) * m_dim * (n_trees * (2 * depth + 4) + 3)
@@ -584,15 +643,17 @@ def _tree_cases(points, forests, floor, label):
                      for f in forests],
         plain=lambda: [kernels.tree_predict(points, *f, sigma_floor=floor,
                                             force="ref") for f in forests],
-        prep=lambda: tp.prepare(points, *forests[0], sigma_floor=floor),
+        prep=lambda i=0: tp.prepare(xs[i], *forests[0], sigma_floor=floor),
         launch=tp.launch, compare=_per_forest(_close(1e-5)), nbytes=nbytes,
-        ops=ops, peak=FP32_OPS_PER_S,
+        ops=ops, peak=FP32_OPS_PER_S, copies=copies,
+        plan=lambda: _tree_plan(points, forests[0]),
         extra=dict(forests=len(forests), M=m_dim, B=n_trees, D=depth,
                    inf_thr_share=round(inf_share, 4)))
 
 
-def _gh_ei_case(label, args, kw):
-    """gh_ei on ``args``; ``kw`` may carry the censoring pre-pass."""
+def _gh_ei_case(label, args, kw, scale=False):
+    """gh_ei on ``args``; ``kw`` may carry the censoring pre-pass.  A
+    ``scale`` case times its launches over copies of the posterior."""
     from repro_torch import kernels
     from repro_torch.core import acquisition as acq
     from repro_torch.kernels.gh_ei import kernel as ge
@@ -602,30 +663,51 @@ def _gh_ei_case(label, args, kw):
     adj = ((mu, sigma) if cens is None else acq.censored_adjust(
         mu, sigma, kw["y_cens"], cens, kw["cens_sigma_rel"]))
     m_dim, k_gh = mu.shape[0], xi.shape[0]
+    nbytes = 4 * m_dim * (3 + 1 + k_gh) + m_dim + 4 * (k_gh + 3)
+    copies = _cold_copies(nbytes) if scale else 1
+    posts = [(*adj, args[2])] + [tuple(t.clone() for t in (*adj, args[2]))
+                                 for _ in range(copies - 1)]
     return OpCase(
         "gh_ei", label,
         run=lambda: kernels.gh_ei(*args, **kw),
         plain=lambda: kernels.gh_ei(*args, **kw, force="ref"),
-        prep=lambda: ge.prepare(*adj, *args[2:], conf=kw["conf"]),
+        prep=lambda i=0: ge.prepare(*posts[i], *args[3:], conf=kw["conf"]),
         launch=ge.launch, compare=_close(1e-5, exact=(1,)),
-        nbytes=4 * m_dim * (3 + 1 + k_gh) + m_dim + 4 * (k_gh + 3),
+        nbytes=nbytes,
         # ~40 per point for EI_c (two erf, an exp, three divisions), one
         # compare, two per node.
-        ops=m_dim * (42 + 2 * k_gh), peak=FP32_OPS_PER_S,
+        ops=m_dim * (42 + 2 * k_gh), peak=FP32_OPS_PER_S, copies=copies,
         extra=dict(M=m_dim, K=k_gh, censored=0 if cens is None
                    else int(cens.sum())))
 
 
-def ops_cases(device, tf_job):
+# The scale cases of the small kernels: 2^20 points (tf-cnn has 384).
+SCALE_M = 1 << 20
+
+
+def ops_cases(device, tf_job, only=None):
     """Every kernel of ``repro_torch.kernels`` but select_step at the
-    shapes of this slice: tf-cnn's forests and root posterior, gemma2-9b's
-    attention."""
+    shapes of this slice: tf-cnn's forests and root posterior (and their
+    scale cases), gemma2-9b's attention, xlstm-125m's scan.  ``only``
+    names the kernels whose cases are made (all by default)."""
+    want = lambda *names: only is None or any(n in only for n in names)
+    cases = []
+    if want("tree_predict", "gh_ei"):
+        cases += _forest_cases(device, tf_job)
+    if want("flash_attention", "decode_attention"):
+        cases += _attention_cases(device)
+    if want("ssm_scan"):
+        cases.append(_xlstm_scan_case(device))
+    return [c for c in cases if want(c.kernel)]
+
+
+def _forest_cases(device, tf_job):
+    """tree_predict and gh_ei on a real tf-cnn selection step's forests and
+    root posterior, and their scale cases."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import Settings
     from repro_torch.core import acquisition as acq
-    from repro_torch.kernels.decode_attention import kernel as da
-    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.select_step.ref import select_step_ref
 
     cases = []
@@ -671,6 +753,45 @@ def ops_cases(device, tf_job):
                               (mu + q * sigma).median(), xi),
                              dict(conf=conf)))
 
+    # Scale cases, not path shapes: M = SCALE_M points, where bytes and
+    # not a launch's latency set the bound.  tree_predict on uniform points
+    # of tf-cnn's F = 5 with a random forest of its B = 10 trees of depth 4
+    # (20% +inf thresholds); gh_ei on the root posterior drawn SCALE_M
+    # times (point, posterior and price together), K = 3, median beta.
+    big = torch.rand((SCALE_M, points.shape[1]), generator=g, device=device)
+    rand_big = (torch.randint(0, points.shape[1], (n_trees, depth, width),
+                              generator=g, device=device, dtype=torch.int32),
+                torch.rand((n_trees, depth, width), generator=g,
+                           device=device),
+                torch.randn((n_trees, 2 ** depth), generator=g,
+                            device=device))
+    rand_big[1][torch.rand(rand_big[1].shape, generator=g, device=device)
+                < 0.2] = float("inf")
+    cases.append(_tree_cases(big, [rand_big], 1e-6,
+                             f"scale case M={SCALE_M}: N(0,1)-leaf random "
+                             f"forest", scale=True))
+    pick = torch.randint(0, mu.shape[0], (SCALE_M,), generator=g,
+                         device=device)
+    mu_b, sigma_b, u_b = mu[pick], sigma[pick], u[pick]
+    cases.append(_gh_ei_case(f"scale case M={SCALE_M}: root posterior "
+                             f"drawn, median beta",
+                             (mu_b, sigma_b, u_b, ystar, t_max,
+                              (mu_b + q * sigma_b).median(), xi),
+                             dict(conf=conf), scale=True))
+
+    return cases
+
+
+def _attention_cases(device):
+    """flash_attention on a gemma2-9b prefill and edge cases of the
+    tensor-core kernel; decode_attention on gemma2-9b caches and at
+    zamba2-7b's decode shape."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    cases = []
     # flash_attention: a gemma2-9b prefill, four variants, two dtypes.
     h, kh, d = GEMMA2["n_heads"], GEMMA2["n_kv_heads"], GEMMA2["head_dim"]
     s = PREFILL_S
@@ -815,7 +936,6 @@ def ops_cases(device, tf_job):
         extra=dict(B=z["b"], H=z["kh"], KH=z["kh"], T=z["t"], D=z["d"],
                    live_slots=z["t"], k_strides=list(k.stride()),
                    splits=da.split_plan(z["b"], z["kh"], z["t"], n_sm)[0])))
-    cases.append(_xlstm_scan_case(device))
     return cases
 
 
@@ -918,16 +1038,18 @@ def _op_counters():
                 ssm_scan=ssm_scan_cuda)
 
 
-def phase_ops(device, tf_job):
+def phase_ops(device, tf_job, only=None):
     """Drive every case through ``repro_torch.kernels`` once with the launch
     counts at 0 (the path), then hold each output against the plain
-    version and time the kernel, the plain version and the library call."""
+    version and time the kernel, the plain version and the library call.
+    ``only`` names the kernels whose cases run (all by default)."""
     import torch
 
     t0 = time.perf_counter()
-    cases = ops_cases(device, tf_job)
+    cases = ops_cases(device, tf_job, only)
     torch.cuda.synchronize()
-    counters = _op_counters()
+    counters = {k: fn for k, fn in _op_counters().items()
+                if only is None or k in only}
     for fn in counters.values():
         fn.launches = 0
     outs = [case.run() for case in cases]
@@ -949,12 +1071,17 @@ def phase_ops(device, tf_job):
         if case.kernel == "gh_ei":
             case.extra["ok"] = int(got[1].sum())
         del got, want
-        args, _out, keep = case.prep()
-        ms = _launch_ms(lambda: case.launch(args), n=case.reps,
-                        warmup=min(3, case.reps))
+        preps = [case.prep()] + [case.prep(i)
+                                 for i in range(1, case.copies)]
+        args = preps[0][0]
+        if case.plan is not None:
+            case.extra.update(case.plan())
+        ms, case.extra["launch_ms"] = _timed(
+            case.launch, [p[0] for p in preps], device, case.reps)
+        case.extra["copies"] = case.copies
         if case.kernel == "ssm_scan":
             case.extra["kernel_ms"] = _ssm_kernel_ms(args)
-        del _out, keep
+        del preps, args
         plain_ms = _median_ms(case.plain, reps=case.plain_reps,
                               warmup=1)
         lib_ms = lib_err = None
@@ -1591,20 +1718,17 @@ def _finding_keys(findings_by_name):
             for name, found in findings_by_name.items()}
 
 
-def phase_analysis(device):
+def argmax_checks(device):
     """masked_argmax against its plain version (both variants, every edge
-    case, at M = 16, 384, 4096 and 1 << 20: the index exactly), its times,
-    then the gate: ``repro_torch.analysis``'s entry point with
-    ``--all --device cuda`` (its launch count read around it), its
-    findings held equal to the CPU's, and the command line itself."""
+    case, at every width of ``ARGMAX_WIDTHS``: the index exactly) and its
+    times: from a CUDA graph (``ms``; at 1 << 20 over copies of the row
+    that together move three times the L2 cache) and launched from the
+    host (``launch_ms``).  Returns (rows, failures)."""
     import torch
-    from repro_torch.analysis import __main__ as gate
-    from repro_torch.analysis import fixtures, registry
     from repro_torch.kernels.masked_argmax import kernel
     from repro_torch.kernels.masked_argmax.kernel import masked_argmax_cuda
     from repro_torch.kernels.masked_argmax.ref import masked_argmax_ref
 
-    t0 = time.perf_counter()
     rows, failures = [], []
     for m in ARGMAX_WIDTHS:
         err = 0
@@ -1628,25 +1752,52 @@ def phase_analysis(device):
         vt = torch.as_tensor(valid, device=device)
         nbytes = 5 * m + 4
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        copies = _cold_copies(nbytes) if m >= SCALE_M else 1
+        rows_in = [(st, vt)] + [(st.clone(), vt.clone())
+                                for _ in range(copies - 1)]
+        geo = kernel.plan(m, kernel._sm_count(device.index or 0))
+        regs, local = kernel.attributes()
         for quantize in (True, False):
-            cargs, _, keep = kernel.prepare(st, vt, quantize=quantize)
-            ms = _launch_ms(lambda: kernel.launch(cargs), n=200)
+            preps = [kernel.prepare(a, b, quantize=quantize)
+                     for a, b in rows_in]
+            ms, launch_ms = _timed(kernel.launch, [p[0] for p in preps],
+                                   device, 200)
             plain_ms = _median_ms(lambda: masked_argmax_ref(
                 st, vt, quantize=quantize))
-            del keep
+            del preps
             rows.append(dict(kernel="masked_argmax", M=m, quantize=quantize,
                              case=f"M={m} quantize={quantize}", ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by="bytes", library_ms=None,
-                             max_abs_err=float(err)))
+                             launch_ms=launch_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by="bytes",
+                             library_ms=None, max_abs_err=float(err)))
             _line("analysis", kernel="masked_argmax", M=m,
                   quantize=quantize, ms=f"{ms:.5f}",
+                  launch_ms=f"{launch_ms:.5f}",
                   plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.3e}",
-                  bound_by="bytes", bytes=nbytes)
+                  bound_by="bytes", bytes=nbytes, copies=copies,
+                  grid=geo.grid, threads=geo.threads,
+                  scratch=geo.grid > 1, registers=regs, local_bytes=local)
+        del rows_in
     _line("analysis", cases=len(ARGMAX_WIDTHS) * len(ARGMAX_KINDS) * 2,
           index_equal=not failures)
     for f in failures:
         print(f"[analysis]   {f}", flush=True)
+    return rows, failures
+
+
+def phase_analysis(device):
+    """masked_argmax against its plain version and its times
+    (:func:`argmax_checks`), then the gate: ``repro_torch.analysis``'s
+    entry point with ``--all --device cuda`` (its launch count read around
+    it), its findings held equal to the CPU's, and the command line
+    itself."""
+    import torch
+    from repro_torch.analysis import __main__ as gate
+    from repro_torch.analysis import fixtures, registry
+    from repro_torch.kernels.masked_argmax.kernel import masked_argmax_cuda
+
+    t0 = time.perf_counter()
+    rows, failures = argmax_checks(device)
 
     # The gate, through its entry point, with the kernel's count around it.
     masked_argmax_cuda.launches = 0
@@ -1735,8 +1886,9 @@ def _op_summary(rows, launches):
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "case": row["case"],
             "cases": [{k: r[k] for k in ("case", "max_abs_err", "ms",
-                                         "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by", "kernel_ms")
+                                         "launch_ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by", "kernel_ms")
                        if k in r} for r in mine]})
     return out
 
@@ -1746,7 +1898,8 @@ def _op_summary(rows, launches):
 NO_SPILL = ("select_step_kernel", "flash_bf16_kernel",
             "decode_split_kernel", "decode_combine_kernel",
             "ssm_chunk_state_kernel", "ssm_state_pass_kernel",
-            "ssm_chunk_scan_kernel")
+            "ssm_chunk_scan_kernel", "masked_argmax_kernel",
+            "tree_predict_kernel")
 
 
 def _spills(logs):
@@ -1767,8 +1920,17 @@ def _spills(logs):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--only", default=None,
+        help="comma-separated kernels of phase ops (tree_predict, gh_ei, "
+             "flash_attention, decode_attention, ssm_scan) and "
+             "masked_argmax: build, run only their checks and times, and "
+             "print no result line (a measurement run, not the smoke)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
@@ -1805,6 +1967,16 @@ def main() -> int:
         raise AssertionError(f"kernels that must not spill do: {spilled}")
 
     tf_job = tensorflow_jobs(0)[0]
+    if args.only is not None:
+        only = tuple(args.only.split(","))
+        ops_only = tuple(k for k in only if k != "masked_argmax")
+        if ops_only:
+            phase_ops(device, tf_job, only=ops_only)
+        if "masked_argmax" in only:
+            _, failures = argmax_checks(device)
+            if failures:
+                raise AssertionError(f"masked_argmax: {failures[:3]}")
+        return 0
     rows, max_err = phase_kernel(device, tf_job)
     op_rows, op_launches = phase_ops(device, tf_job)
     launches = phase_main(device, tf_job)
