@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only tree_predict,gh_ei,masked_argmax
+    python3 chip_smoke.py --only batched
 
 With ``--only`` it builds, runs the named kernels' checks and times of
-phases ops and analysis, and prints no result line (a measurement run).
+phases ops and analysis (or, for ``batched``, the batched step's launches
+of phase kernel and phase batched), and prints no result line (a
+measurement run).
 Without it, phases one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
@@ -17,7 +20,9 @@ Without it, phases one line each with its times, then two JSON lines:
    384: root S = 1, depth 1 S = 1152, depth 2 S = 3456, with and without
    censoring, padded to the bucket, a ragged S, random forests) and
    beyond them (16 trees of depth 6, M = 377, y* over signed zeros and
-   ties), each with its launch plan (grid, lanes per state, states a
+   ties), and at one batched selection step of 2 tf-cnn runs (S = 2,
+   2304, 6912, each state with its run's sigma floor), each with its
+   launch plan (grid, lanes per state, states a
    block, shared bytes, registers), its device time (``ms``: launches
    replayed from a CUDA graph; ``launch_ms``: launched back to back from
    the host), the main path's launches also at other lanes per state, its
@@ -51,7 +56,19 @@ Without it, phases one line each with its times, then two JSON lines:
 6. golden: ``run_many`` on ``synthetic_job(0)`` through the kernel must
    reproduce ``src/repro_torch/testdata/golden_outcomes.json``, written by
    the JAX package on the CPU;
-7. analysis: the determinism gate's kernel, masked_argmax, against its
+7. batched: the batched harness (``run_many_batched``,
+   ``run_queue_batched``) through the kernel: (a) the golden runs of
+   phase 6, compact on 2 slots and lockstep on 3; (b) the three-job and
+   the three-geometry queues of ``tests/test_batched_harness.py`` against
+   ``run_queue``, each bucketed drain adding one program geometry; (c)
+   tf-cnn's bootstrap states at the deployment's slot count
+   (``_auto_lane_chunk``: 11 seats) in one batched step, 3 launches (S =
+   11, 12,672, 38,016), each seat bitwise equal to the sequential
+   selector, with its seconds and peak memory; (d) tf-cnn, 3 runs on 2
+   slots (a refill), against ``run_many``, with 3 launches a step and the
+   host syncs inside the step bodies counted; steps/s and mean
+   ``select_seconds`` of both;
+8. analysis: the determinism gate's kernel, masked_argmax, against its
    plain version (both variants; random scores, near-ties, exact ties,
    NaN, -0.0/+0.0, infinities and all-invalid rows at M = 16, 384, 4096
    and 1 << 20: the index exactly) with its launch plan (grid, threads,
@@ -62,7 +79,7 @@ Without it, phases one line each with its times, then two JSON lines:
    read after; its findings (fixtures and registered programs) held equal
    to the CPU's; and ``python -m repro_torch.analysis --all --device cuda``
    as a command;
-8. model: zamba2-7b served at full width and depth (81 layers, d_model
+9. model: zamba2-7b served at full width and depth (81 layers, d_model
    3584, 6.75 B float32 parameters drawn on the card from a seeded
    generator) through ``repro_torch.launch.serve.generate``: B = 4 prompts
    of 1000 tokens from ``make_batch(seed=0)``, 32 tokens each, with the
@@ -263,6 +280,58 @@ def capture_select_step_calls(job, settings, device):
     return calls, step_s
 
 
+def _seat_states(job, settings, seats, device):
+    """The bootstrap states of ``seats`` runs (seeds 0, 1, ... of
+    ``run_many``) on the card, and each run's first selection key."""
+    import torch
+    from repro_torch.core import RunRequest, optimizer, prng
+    reqs = [RunRequest(job, sd)
+            for sd in optimizer._per_run_seeds(0, seats)]
+    st = optimizer._init_run_states(reqs, settings)
+    st.pop("budgets")
+    st = {k: torch.as_tensor(v, device=device) for k, v in st.items()}
+    st["sub"] = prng.split(st["keys"]).unbind(-2)[1]
+    st["beta"] = torch.clamp_min(st["beta"], 0.0)
+    return st
+
+
+def _batched_select(job, settings, st, device):
+    """One batched selection step of the seats in ``st`` (one job: one
+    group), timed to its end."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lookahead
+    pts, left, thr, u = lookahead.space_arrays(job.space, job.unit_price,
+                                               device)
+    t_max = torch.tensor(float(np.float32(job.t_max)), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lookahead.select_next_batched(
+        st["sub"], st["y"], st["mask"], st["beta"], pts, left, thr, u, t_max,
+        settings, st["cens"] if settings.timeout else None, None)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def capture_batched_calls(job, settings, seats, device):
+    """The arguments of every ``select_step`` launch of one batched
+    selection step at ``seats`` runs (S = R, R·M·K, R·M·K²)."""
+    from repro_torch.kernels.select_step import kernel, ops
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, dict(kw)))
+        return kernel.select_step_cuda(*args, **kw)
+
+    st = _seat_states(job, settings, seats, device)
+    ops._kernel = types.SimpleNamespace(select_step_cuda=record)
+    try:
+        _, step_s = _batched_select(job, settings, st, device)
+    finally:
+        ops._kernel = kernel
+    return calls, step_s
+
+
 def _pad_call(args, kw, m_pad, device):
     """The same call on the space padded to ``m_pad`` points (valid mask)."""
     import torch
@@ -367,15 +436,38 @@ def _bytes_and_ops(args, kw, outs):
     return nbytes, ops
 
 
-def phase_kernel(device, tf_job):
-    import torch
+BATCHED_KERNEL_SEATS = 2
+
+
+def _batched_variants(tf_job, s, device):
+    """Phase kernel's cases from one batched tf-cnn selection step at
+    ``BATCHED_KERNEL_SEATS`` runs: one launch a level for both runs, each
+    state with its own run's sigma floor."""
+    capture_batched_calls(tf_job, s, BATCHED_KERNEL_SEATS, device)  # warm-up
+    calls, step_s = capture_batched_calls(tf_job, s, BATCHED_KERNEL_SEATS,
+                                          device)
+    r, m, k = BATCHED_KERNEL_SEATS, tf_job.space.n_points, s.k_gh
+    s_dims = [c[0][3].shape[0] for c in calls]
+    if s_dims != [r, r * m * k, r * m * k * k]:
+        raise AssertionError(f"batched step at {r} runs: expected launches "
+                             f"at S = R, R·M·K, R·M·K²; got {s_dims}")
+    _line("kernel", batched_runs=r, batched_selection_step_s=f"{step_s:.4f}",
+          launch_shapes=[tuple(c[0][3].shape) for c in calls])
+    return [(f"batched{r}_{tag}_S{n}", *c)
+            for tag, n, c in zip(("root", "d1", "d2"), s_dims, calls)]
+
+
+def phase_kernel(device, tf_job, only_batched=False):
+    """The select_step kernel against its plain version at the main
+    path's shapes and beyond them, then at a batched step's (phase
+    batched's launches); ``only_batched``: the batched step's alone."""
     from repro_torch.core import GeometryBucket, Settings
-    from repro_torch.kernels.select_step import kernel
-    from repro_torch.kernels.select_step.kernel import select_step_cuda
-    from repro_torch.kernels.select_step.ref import select_step_ref
 
     t0 = time.perf_counter()
     s = Settings(timeout=True)
+    if only_batched:
+        variants = _batched_variants(tf_job, s, device)
+        return _kernel_checks(variants, device, t0)
     capture_select_step_calls(tf_job, s, device)      # warm-up step
     calls, step_s = capture_select_step_calls(tf_job, s, device)
     _line("kernel", one_selection_step_s=f"{step_s:.4f}",
@@ -410,6 +502,17 @@ def phase_kernel(device, tf_job):
         variants.append((f"{name}_M{m - 7}", *_cut_points(args, kw, m - 7)))
         variants.append((f"{name}_signed_zero_ties",
                          *_signed_zero_call(args, kw)))
+    variants += _batched_variants(tf_job, s, device)
+    return _kernel_checks(variants, device, t0)
+
+
+def _kernel_checks(variants, device, t0):
+    """Each variant's kernel output against its plain version, bitwise,
+    with its plan and times; raises on any difference."""
+    import torch
+    from repro_torch.kernels.select_step import kernel
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+    from repro_torch.kernels.select_step.ref import select_step_ref
 
     rows = []
     max_err = 0.0
@@ -1223,7 +1326,244 @@ def phase_golden(device):
 
 
 # --------------------------------------------------------------------------- #
-# Phase 7: the Zamba2 serving path (ssm_scan, flash and decode attention)
+# Phase 7: the batched harness (run_many_batched, run_queue_batched)
+# --------------------------------------------------------------------------- #
+# (d)'s tf-cnn runs: timeout off (~30 steps a run), 3 runs on 2 slots, so
+# that a slot refills.
+BATCHED_TF_RUNS, BATCHED_TF_SLOTS = 3, 2
+
+
+def _mixed_queues():
+    """The three-job and the three-geometry queues of
+    ``tests/test_batched_harness.py``."""
+    from repro_torch.core import RunRequest
+    from repro_torch.jobs.synthetic import synthetic_job
+    jobs = [synthetic_job(i, name=f"syn{i}") for i in range(3)]
+    geo = [synthetic_job(0, n_a=6, n_b=4, name="g24"),
+           synthetic_job(1, n_a=5, n_b=3, name="g15"),
+           synthetic_job(2, n_a=4, n_b=8, name="g32")]
+    return {
+        "three_jobs": [RunRequest(jobs[r % 3], seed=100 + r,
+                                  budget_b=5.0 if r % 3 == 0 else 1.5)
+                       for r in range(8)],
+        "three_geometries": [RunRequest(geo[r % 3], seed=700 + r,
+                                        budget_b=4.0 if r % 3 == 0 else 1.5)
+                             for r in range(7)]}
+
+
+class _StepCounter:
+    """Counts the harness's steps (``optimizer._segment_body`` calls) and
+    the host syncs inside them (``torch.cuda.set_sync_debug_mode``
+    warnings): each step's one intended host read, its loop condition,
+    lies outside the body."""
+
+    def __init__(self):
+        from repro_torch.core import optimizer
+        self.optimizer, self.real = optimizer, optimizer._segment_body
+        self.steps = self.syncs = 0
+
+    def __enter__(self):
+        import torch
+        import warnings
+
+        def body(*a, **k):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = self.real(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            self.steps += 1
+            self.syncs += sum("synchroniz" in str(w.message) for w in caught)
+            return out
+        self.optimizer._segment_body = body
+        return self
+
+    def __exit__(self, *exc):
+        self.optimizer._segment_body = self.real
+
+
+def _batched_golden(device):
+    """(a) The golden synthetic runs through both schedulers."""
+    from repro_torch.core import Settings, run_many_batched
+    from repro_torch.jobs.synthetic import synthetic_job
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+    from repro_torch.obs.forensics import outcome_to_dict
+
+    golden = json.loads(GOLDEN.read_text())
+    job = synthetic_job(golden["job_seed"])
+    for case in golden["cases"]:
+        want = json.dumps(case["outcomes"], sort_keys=True)
+        for scheduler, slots in (("compact", 2), ("lockstep", 3)):
+            select_step_cuda.launches = 0
+            outs = run_many_batched(
+                job, Settings(**case["settings"]), n_runs=golden["n_runs"],
+                budget_b=golden["budget_b"], lane_chunk=slots,
+                scheduler=scheduler, device=device)
+            got = json.dumps([outcome_to_dict(o) for o in outs],
+                             sort_keys=True)
+            if got != want or select_step_cuda.launches == 0:
+                raise AssertionError(
+                    f"batched golden {case['settings']} {scheduler}: "
+                    f"{select_step_cuda.launches} launches, outcomes "
+                    f"{'equal' if got == want else 'differ'}")
+            _line("batched", part="golden", scheduler=scheduler, slots=slots,
+                  settings=json.dumps(case["settings"],
+                                      separators=(",", ":")),
+                  runs=len(outs), launches=select_step_cuda.launches,
+                  equal=True)
+
+
+def _batched_queues(device):
+    """(b) The mixed queues against ``run_queue``, on 2 slots: the
+    reference's frozen-refit queues (plain path) with the timeout off and
+    on, and the same queues with the exact refit (the kernel, one group a
+    job)."""
+    from repro_torch.core import (Settings, episode_cache_size, run_queue,
+                                  run_queue_batched)
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+    from repro_torch.obs.forensics import diff_outcomes
+
+    for name, reqs in _mixed_queues().items():
+        for refit, timeout in (("frozen", False), ("frozen", True),
+                               ("exact", False)):
+            s = Settings(policy="lynceus", la=1, k_gh=2, refit=refit,
+                         timeout=timeout)
+            seq = run_queue(reqs, s, device=device)
+            before = episode_cache_size()
+            select_step_cuda.launches = 0
+            with _StepCounter() as count:
+                t0 = time.perf_counter()
+                bat = run_queue_batched(reqs, s, lane_slots=2, device=device)
+                wall = time.perf_counter() - t0
+            added = episode_cache_size() - before
+            if _pinned_json(bat) != _pinned_json(seq):
+                raise AssertionError(f"batched queue {name} {refit} "
+                                     f"timeout={timeout}: "
+                                     + "; ".join(diff_outcomes(seq,
+                                                               bat)[:3]))
+            if added != 1 or (refit == "exact"
+                              and select_step_cuda.launches == 0):
+                raise AssertionError(
+                    f"batched queue {name}: {added} programs added, "
+                    f"{select_step_cuda.launches} launches")
+            _line("batched", part="queue", queue=name, refit=refit,
+                  timeout=timeout, requests=len(reqs), slots=2,
+                  steps=count.steps, launches=select_step_cuda.launches,
+                  syncs_in_step_bodies=count.syncs, programs_added=added,
+                  wall_s=f"{wall:.2f}", pinned_equal_run_queue=True)
+
+
+def _batched_tf_step(device, tf_job):
+    """(c) One batched selection step at the deployment's slot count
+    against the sequential selector on each seat's state."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Settings, lookahead, optimizer
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+
+    s = Settings(timeout=True)
+    seats = optimizer._auto_lane_chunk(tf_job, s, 100)
+    st = _seat_states(tf_job, s, seats, device)
+    calls, _ = capture_batched_calls(tf_job, s, seats, device)
+    m, k = tf_job.space.n_points, s.k_gh
+    s_dims = [c[0][3].shape[0] for c in calls]
+    del calls
+    if s_dims != [seats, seats * m * k, seats * m * k * k]:
+        raise AssertionError(f"tf-cnn at {seats} seats: launches at S = "
+                             f"{s_dims}")
+    torch.cuda.reset_peak_memory_stats()
+    select_step_cuda.launches = 0
+    (idx, valid, diag), step_s = _batched_select(tf_job, s, st, device)
+    launches = select_step_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != 3:
+        raise AssertionError(f"{seats} seats: {launches} select_step "
+                             "launches in one step (want 3)")
+    sel = lookahead.make_selector(tf_job.space, tf_job.unit_price,
+                                  tf_job.t_max, s, device=device)
+    host = lambda a: a.cpu().numpy()
+    bad = []
+    t0 = time.perf_counter()
+    for r in range(seats):
+        i, v, d = sel(st["sub"][r], host(st["y"][r]), host(st["mask"][r]),
+                      np.float32(st["beta"][r].item()), host(st["cens"][r]))
+        if int(i) != int(idx[r]) or bool(v) != bool(valid[r]):
+            bad.append(f"seat {r}: index/valid {int(i)}/{bool(v)} alone, "
+                       f"{int(idx[r])}/{bool(valid[r])} batched")
+        bad += [f"seat {r}: diagnostic {key} differs" for key in d
+                if host(d[key]).tobytes() != host(diag[key][r]).tobytes()]
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"tf-cnn batched step: {bad[:3]}")
+    _line("batched", part="tf_step", job=tf_job.name, seats=seats,
+          launches=launches, launch_S=s_dims, step_s=f"{step_s:.4f}",
+          sequential_s=f"{seq_s:.4f}",
+          peak_memory_gib=f"{peak / 2 ** 30:.2f}", equal_alone=True)
+    return dict(seats=seats, step_s=step_s, sequential_s=seq_s, peak=peak)
+
+
+def _batched_tf_runs(device, tf_job, n_runs=BATCHED_TF_RUNS,
+                     slots=BATCHED_TF_SLOTS):
+    """(d) tf-cnn runs, timeout off, through the compacting scheduler
+    against ``run_many`` on the same seeds, through the kernel."""
+    import statistics as st_
+
+    import torch
+    from repro_torch.core import Settings, run_many_batched
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+    from repro_torch.obs.forensics import diff_outcomes
+
+    s = Settings()
+    select_step_cuda.launches = 0
+    with _StepCounter() as count:
+        t0 = time.perf_counter()
+        bat = run_many_batched(tf_job, s, n_runs=n_runs, lane_chunk=slots,
+                               device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = select_step_cuda.launches
+    if launches != 3 * count.steps or count.steps == 0:
+        raise AssertionError(f"batched tf-cnn: {launches} launches for "
+                             f"{count.steps} steps of {slots} slots (want "
+                             "3 a step: one a level for every slot)")
+    seq, seq_steps, seq_wall = _counting_selector_runs(tf_job, s, n_runs,
+                                                       3.0, device)
+    if _pinned_json(bat) != _pinned_json(seq):
+        raise AssertionError("batched tf-cnn runs differ from run_many: "
+                             + "; ".join(diff_outcomes(seq, bat)[:3]))
+    _line("batched", part="tf_runs", job=tf_job.name, runs=n_runs,
+          slots=slots, steps=count.steps, launches=launches,
+          syncs_in_step_bodies=count.syncs, wall_s=f"{wall:.1f}",
+          steps_per_s=f"{count.steps / wall:.3f}",
+          selections_per_s=f"{count.steps * slots / wall:.3f}",
+          mean_select_s=f"{st_.mean(o.select_seconds for o in bat):.4f}",
+          seq_steps=seq_steps, seq_wall_s=f"{seq_wall:.1f}",
+          seq_steps_per_s=f"{seq_steps / seq_wall:.3f}",
+          seq_mean_select_s=f"{st_.mean(o.select_seconds for o in seq):.4f}",
+          nex=[o.nex for o in bat], pinned_equal_run_many=True)
+    return launches
+
+
+def phase_batched(device, tf_job):
+    """The batched harness on the card: (a) the golden runs through both
+    schedulers, (b) the mixed queues against ``run_queue``, (c) a tf-cnn
+    step at the deployment's seat count against the sequential selector,
+    (d) tf-cnn runs against ``run_many``.  Phase kernel holds the batched
+    step's launches against their plain version (e)."""
+    t0 = time.perf_counter()
+    _batched_golden(device)
+    _batched_queues(device)
+    step = _batched_tf_step(device, tf_job)
+    launches = _batched_tf_runs(device, tf_job)
+    _line("batched", phase_s=f"{time.perf_counter() - t0:.1f}")
+    return step, launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 9: the Zamba2 serving path (ssm_scan, flash and decode attention)
 # --------------------------------------------------------------------------- #
 ZAMBA = dict(arch="zamba2-7b", batch=4, prompt=1000, gen=32)
 # Serving runs in phase model: the first with the launch counts, then
@@ -1816,14 +2156,17 @@ def phase_analysis(device):
     # The same findings on both devices, fixture by fixture and program by
     # program (the paths differ by the kernel replays, ``kernel:<op>``).
     same = {}
+    specs = registry.registered_programs()
     for tag, dev in (("card", device), ("cpu", torch.device("cpu"))):
         found = fixtures.run_fixtures(dev)
+        n_fixtures = len(found)
         found.update({spec.name: registry.audit_program(spec, dev)
-                      for spec in registry.registered_programs()})
+                      for spec in specs})
         same[tag] = _finding_keys(found)
     differ = sorted(k for k in same["cpu"]
                     if same["cpu"][k] != same["card"].get(k))
-    _line("analysis", programs=len(same["cpu"]), same_findings=not differ,
+    _line("analysis", programs=len(specs), fixtures=n_fixtures,
+          same_findings=not differ,
           findings_on_card=sum(len(v) for v in same["card"].values()))
     if differ:
         failures.append(f"card and CPU findings differ in {differ}")
@@ -1927,9 +2270,10 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--only", default=None,
         help="comma-separated kernels of phase ops (tree_predict, gh_ei, "
-             "flash_attention, decode_attention, ssm_scan) and "
-             "masked_argmax: build, run only their checks and times, and "
-             "print no result line (a measurement run, not the smoke)")
+             "flash_attention, decode_attention, ssm_scan), masked_argmax "
+             "and the phase batched: build, run only their checks and "
+             "times, and print no result line (a measurement run, not the "
+             "smoke)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1969,7 +2313,11 @@ def main(argv=None) -> int:
     tf_job = tensorflow_jobs(0)[0]
     if args.only is not None:
         only = tuple(args.only.split(","))
-        ops_only = tuple(k for k in only if k != "masked_argmax")
+        ops_only = tuple(k for k in only
+                         if k not in ("masked_argmax", "batched"))
+        if "batched" in only:
+            phase_kernel(device, tf_job, only_batched=True)
+            phase_batched(device, tf_job)
         if ops_only:
             phase_ops(device, tf_job, only=ops_only)
         if "masked_argmax" in only:
@@ -1981,6 +2329,7 @@ def main(argv=None) -> int:
     op_rows, op_launches = phase_ops(device, tf_job)
     launches = phase_main(device, tf_job)
     phase_golden(device)
+    phase_batched(device, tf_job)
     analysis_rows, argmax_launches = phase_analysis(device)
     model_rows, model_launches, _serving = phase_model(device)
     # Each kernel's launches come from the path that runs it: tree_predict

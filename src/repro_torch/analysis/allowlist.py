@@ -31,7 +31,7 @@ _COUNTS = ("an exact count: the summands are integer-valued float32 "
 
 ALLOWLIST = [
     Allow(file="core/lookahead.py", rule="unpinned-reduction",
-          match="n = torch.clamp_min(obs.sum(), 1.0)",
+          match="n = torch.clamp_min(obs.sum(dim=-1), 1.0)",
           why="_sigma_floor's observation count: " + _COUNTS),
     Allow(file="core/lookahead.py", rule="unpinned-reduction",
           match="sw = (boot_w[:, :, None] * same_leaf.to(torch.float32))",

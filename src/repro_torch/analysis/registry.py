@@ -8,11 +8,19 @@ port program that has a reference counterpart, on a given device:
   fused (``fused_selector="auto"``: the select_step kernel on the card,
   its plain version on the CPU) and unfused (``"ref"``), with timeout
   censoring, and with the frozen refit;
+* the batched harness's episode programs: a lockstep step (timeout off and
+  on) and a lane-compacting segment step (single-job native queue, and a
+  geometry-bucketed queue), each with the selection fused.  Where the
+  reference's episode is one ``lax.while_loop``, the port's is a host loop
+  whose one host read a step is the loop condition
+  (``optimizer._read_step``); the audited program is the device side of a
+  step: ``_lockstep_body``, and ``_segment_start`` (with the evict flag)
+  then ``_segment_body``;
 * each kernel op, through its plain version (``force="ref"``) and through
   its dispatch (``force="auto"``: the kernel on the card).
 
-The episode and segment programs join when the port has them (ROADMAP
-A8).  Geometries are the reference's smallest ones, chosen so the padded
+The sharded segment joins with the service (ROADMAP A9).  Geometries are
+the reference's smallest ones, chosen so the padded
 width ``m = 32`` is unique among the dimension sizes the programs run
 (R3 identifies the M axis by its size).  Inputs are zeros, as the
 reference's example arguments; a trace runs the program for real, so the
@@ -26,6 +34,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.analysis.rules import default_rules
 from repro_torch.analysis.trace_audit import Finding, audit
@@ -117,6 +126,96 @@ def _selector_padded(policy: str, *, fused: bool, refit: str = "exact",
     return build
 
 
+def _episode_lockstep(timeout: bool):
+    def build(device):
+        from repro_torch.core import lookahead, optimizer
+        space = _native_space()
+        s = _settings("lynceus", True, timeout=timeout)
+        pts, left, thr, u = lookahead.space_arrays(
+            space, np.ones(space.n_points), device)
+        m, r = space.n_points, 2
+        z = lambda dt, *shape: torch.zeros(shape, dtype=dt, device=device)
+        ones = torch.ones(m, device=device)
+        st = {"key": z(torch.int64, r, 2), "y": z(torch.float32, r, m),
+              "mask": z(torch.bool, r, m),
+              "beta": torch.ones(r, device=device),
+              "explored": torch.full((r, m), -1, dtype=torch.int32,
+                                     device=device),
+              "n_exp": z(torch.int32, r),
+              "active": torch.ones(r, dtype=torch.bool, device=device)}
+        if timeout:
+            st.update(cens=z(torch.bool, r, m), cexpl=z(torch.bool, r, m),
+                      bexpl=z(torch.float32, r, m))
+        rows = (pts, left, thr, u, torch.tensor(1.0, device=device), None)
+
+        def fn(st_):
+            return optimizer._lockstep_body(st_, ones, ones, rows, s)
+        return fn, (st,), default_rules()
+    return build
+
+
+def _segment(bucketed: bool):
+    def build(device):
+        from repro_torch.core import lookahead, optimizer, trees
+        space = _native_space()
+        s = _settings("lynceus", True)
+        l_dim, c_dim = 2, 3
+        valid = job_ids = None
+        if bucketed:
+            ps = space.pad_to(_bucket())
+            m = ps.n_points
+            as_t = lambda a: torch.as_tensor(np.asarray(a), device=device)
+            pts, thr = as_t(ps.points)[None], as_t(ps.thresholds)[None]
+            left = trees.make_left_table(ps.points, ps.thresholds,
+                                         device=device)[None]
+            valid = as_t(ps.valid)[None]
+            u = torch.ones((1, m), device=device)
+            t_max = torch.ones(1, device=device)
+            cost = torch.ones((1, m), device=device)
+            job_ids = torch.zeros(l_dim + c_dim, dtype=torch.int64,
+                                  device=device)
+        else:
+            m = space.n_points
+            pts, left, thr, u = lookahead.space_arrays(
+                space, np.ones(m), device)
+            t_max = torch.tensor(1.0, device=device)
+            cost = torch.ones(m, device=device)
+        carry = optimizer._fresh_slot_carry(l_dim, m, s, device)
+        queue = {"keys": torch.zeros((c_dim, 2), dtype=torch.int64,
+                                     device=device),
+                 "y": torch.zeros((c_dim, m), device=device),
+                 "mask": torch.zeros((c_dim, m), dtype=torch.bool,
+                                     device=device),
+                 "beta": torch.ones(c_dim, device=device),
+                 "explored": torch.full((c_dim, m), -1, dtype=torch.int32,
+                                        device=device),
+                 "n_exp": torch.zeros(c_dim, dtype=torch.int32,
+                                      device=device)}
+        # The evict flag is part of the audited program: the boundary
+        # banking of flagged seats must add no reduction.
+        evict = torch.zeros(l_dim, dtype=torch.bool, device=device)
+        n_out = l_dim + c_dim
+
+        def fn(carry_, queue_, qtail, evict_, *valid_):
+            rows = optimizer._job_rows(job_ids, pts, left, thr, u, t_max,
+                                       valid_[0] if valid_ else None)
+            st = optimizer._segment_start(carry_, evict_, n_out, s)
+            return optimizer._segment_body(
+                st, queue_, qtail, optimizer._job_groups([0] * l_dim, rows),
+                job_ids, cost, None, u, s, n_out)
+        example = (carry, queue, c_dim, evict) + ((valid,) if bucketed
+                                                  else ())
+        if not bucketed:
+            return fn, example, default_rules()
+        # The observation masks and the validity rows are False on padding.
+        masks = {id(carry["mask"]), id(queue["mask"]), id(valid)}
+        leaves, _ = tree_flatten(example)
+        return fn, example, default_rules(
+            m=m, mask_argnums=tuple(i for i, leaf in enumerate(leaves)
+                                    if id(leaf) in masks))
+    return build
+
+
 def _kernel_args(name: str, device):
     g = torch.Generator().manual_seed(0)
     rnd = lambda *shape: torch.randn(shape, generator=g).to(device)
@@ -199,6 +298,17 @@ def registered_programs() -> list[ProgramSpec]:
         "selector/lynceus/padded/frozen",
         _selector_padded("lynceus", fused=False, refit="frozen"),
         "padded selector with frozen-structure incremental refit"))
+    for timeout, tag in ((False, ""), (True, "/timeout")):
+        specs.append(ProgramSpec(
+            f"episode/lockstep{tag}", _episode_lockstep(timeout),
+            "lockstep batched episode step"
+            + (" with timeout-censored exploration" if timeout else "")))
+    specs.append(ProgramSpec(
+        "episode/segment", _segment(bucketed=False),
+        "lane-compacting segment step, single-job native queue"))
+    specs.append(ProgramSpec(
+        "episode/segment/bucketed", _segment(bucketed=True),
+        "lane-compacting segment step, geometry-bucketed mixed queue"))
     for k in _KERNELS:
         specs.append(ProgramSpec(f"kernel/{k}/ref", _kernel(k, "ref"),
                                  f"{k} plain PyTorch version"))

@@ -8,7 +8,10 @@ The port of ``repro.core``'s sequential decision loop.  Layout:
 * ``acquisition`` — EI / constrained EI / budget filter / Gauss-Hermite
 * ``lookahead``   — NextConfig/ExplorePaths (Algs. 1-2), one launch of the
                     selector-step kernel per lookahead level on the card
-* ``optimizer``   — the sequential optimization loop + BO / LA0 / RND
+* ``optimizer``   — the optimization loop + BO / LA0 / RND: the sequential
+                    oracle (``run_many``, ``run_queue``) and the batched,
+                    lane-compacting harness (``run_many_batched``,
+                    ``run_queue_batched``) with the same Outcomes
 * ``metrics``     — CNO / NEX aggregation
 """
 
@@ -16,13 +19,19 @@ from repro_torch.core.space import (DiscreteSpace, GeometryBucket,
                                     PaddedSpace, latin_hypercube_indices)
 from repro_torch.core.lookahead import (Settings, select_next,
                                         select_next_batched, make_selector,
-                                        make_batch_selector)
-from repro_torch.core.optimizer import Outcome, optimize, run_many
+                                        make_batch_selector,
+                                        selector_cache_size)
+from repro_torch.core.optimizer import (Outcome, RunRequest,
+                                       episode_cache_size, optimize,
+                                       run_many, run_many_batched, run_queue,
+                                       run_queue_batched)
 from repro_torch.core import acquisition, metrics, trees
 
 __all__ = [
     "DiscreteSpace", "GeometryBucket", "PaddedSpace",
     "latin_hypercube_indices", "Settings", "select_next",
     "select_next_batched", "make_selector", "make_batch_selector",
-    "Outcome", "optimize", "run_many", "acquisition", "metrics", "trees",
+    "selector_cache_size", "Outcome", "RunRequest", "episode_cache_size",
+    "optimize", "run_many", "run_many_batched", "run_queue",
+    "run_queue_batched", "acquisition", "metrics", "trees",
 ]

@@ -48,11 +48,18 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _const(v, device) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``device``: a tensor converted, a
+    number rounded to float32 and filled in on the device (no copy from
+    the host, so no wait for the device)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)
+
+
 def _div(a: torch.Tensor, b) -> torch.Tensor:
     """True float32 division, also when ``b`` is a Python number."""
-    if not isinstance(b, torch.Tensor):
-        b = torch.tensor(_f32(b), dtype=torch.float32, device=a.device)
-    return a / b
+    return a / _const(b, a.device)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -91,9 +98,7 @@ def fma(a, b, c) -> torch.Tensor:
     """
     dev = next((v.device for v in (a, b, c) if isinstance(v, torch.Tensor)),
                None)
-    a, b, c = torch.broadcast_tensors(
-        *(torch.as_tensor(v, dtype=torch.float32, device=dev)
-          for v in (a, b, c)))
+    a, b, c = torch.broadcast_tensors(*(_const(v, dev) for v in (a, b, c)))
     p = a.double() * b.double()
     cd = c.double()
     s = p + cd
@@ -116,8 +121,7 @@ def _minus_mu(c, mu, mu_parts):
     if mu_parts is None:
         return ftz(ftz(c) - ftz(mu))
     acc, inv = mu_parts
-    return fma(acc, -inv, ftz(torch.as_tensor(c, dtype=torch.float32,
-                                              device=acc.device)))
+    return fma(acc, -inv, ftz(_const(c, acc.device)))
 
 
 _MASK32 = 0xFFFFFFFF
@@ -364,7 +368,7 @@ def timeout_cap(best_feas, sigma_sel, u_sel, beta, t_max, kappa, tmax_mult
     once a feasible incumbent exists; sigma enters on a 4-bit grid.  τ is
     billed, so every operation here is exact float32 arithmetic."""
     dev = best_feas.device
-    f = lambda v: ftz(torch.as_tensor(v, dtype=torch.float32, device=dev))
+    f = lambda v: ftz(_const(v, dev))
     best_feas, t_max, beta, u_sel = f(best_feas), f(t_max), f(beta), f(u_sel)
     u_floor = torch.maximum(u_sel, torch.full_like(u_sel, _SIG_EPS))
     cap = torch.minimum(ftz(t_max * _f32(tmax_mult)),

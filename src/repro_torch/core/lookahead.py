@@ -41,7 +41,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.select_step.ops import select_step
 
 __all__ = ["Settings", "select_next", "select_next_batched", "make_selector",
-           "make_batch_selector", "space_arrays", "space_valid"]
+           "make_batch_selector", "space_arrays", "space_valid",
+           "slot_price_rows", "selector_cache_size"]
 
 _EPS = acq._f32(1e-9)
 
@@ -95,19 +96,27 @@ def _fused_mode(s: Settings) -> str | None:
 def _sigma_floor(y, obs_mask, rel):
     """``1e-6 + rel·std(observed y)`` as the reference's CPU program
     computes it: XLA-ordered float32 sums (``trees.xla_sum``) and a
-    contracted final multiply-add; a float32 scalar on ``y``'s device."""
+    contracted final multiply-add; a float32 scalar on ``y``'s device, or
+    one a run for a batch ``[R, M]``."""
     obs = obs_mask.to(torch.float32)
-    n = torch.clamp_min(obs.sum(), 1.0)
+    n = torch.clamp_min(obs.sum(dim=-1), 1.0)
     mean = trees.xla_sum(y * obs) / n
-    d = y - mean
+    d = y - mean[..., None]
     var = trees.xla_sum((d * d) * obs) / n
     sd = acq.sqrt_rn(torch.clamp_min(var, 0.0))
     return acq.fma(acq._f32(rel), sd, acq._f32(1e-6))
 
 
 def _state_keys(key, n):
-    """``fold_in(key, i)`` for every state index i (padding-invariant)."""
-    return prng.fold_in(key[None, :], torch.arange(n, device=key.device))
+    """``fold_in(key, i)`` for every state index i (padding-invariant).
+    With R runs' keys ``[R, 2]`` the n states are R runs' n / R states in
+    turn, and run r's state i takes ``fold_in(key_r, i)``: the keys it
+    has when it is selected alone."""
+    if key.dim() == 1:
+        return prng.fold_in(key[None, :], torch.arange(n, device=key.device))
+    r_dim = key.shape[0]
+    local = torch.arange(n // r_dim, device=key.device)
+    return prng.fold_in(key[:, None, :], local[None, :]).reshape(n, 2)
 
 
 def _fit_root(key, y, obs_mask, cens, points, left, thresholds, floor,
@@ -149,11 +158,15 @@ def _fit_batch_exact(key, y_b, m_b, cens_b, points, left, thresholds, floor,
 def _fit_batch_params(key, y_b, m_b, points, left, thresholds, s: Settings,
                       y_split=None):
     """Per-state forest parameters [S, B, D, W] for the fused step, under
-    the same key schedule as :func:`_fit_batch_exact`."""
+    the same key schedule as :func:`_fit_batch_exact`; with R runs' keys
+    each run's S / R states fit as they do alone (:func:`_state_keys`,
+    ``trees.fit_forest``'s ``program_states``)."""
+    s_dim = y_b.shape[0]
+    r_dim = 1 if key.dim() == 1 else key.shape[0]
     params, _ = trees.fit_forest(
-        _state_keys(key, y_b.shape[0]), y_b, m_b, points, left, thresholds,
+        _state_keys(key, s_dim), y_b, m_b, points, left, thresholds,
         n_trees=s.n_trees, depth=s.depth, y_split=y_split,
-        node_sums="lanes")
+        node_sums="lanes", program_states=s_dim // r_dim)
     return params
 
 
@@ -197,27 +210,27 @@ def _at(a, i):
     return a[i.reshape(1)][0]
 
 
-def _where(c, a, b):
-    return torch.where(c, a, torch.as_tensor(b, dtype=a.dtype,
-                                             device=a.device))
-
-
 def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
              thresholds, u, t_max, floor, s: Settings, frozen_ctx,
              cens_b=None, valid=None, y_split=None):
     """Score each state's own argmax-EI_c pick; branch if depth_left > 0.
 
     ``y_split`` is the y these states' split search reads (see
-    :func:`_lookahead_tail`), None for ``y_b``.  Returns (reward [S], cost
-    [S]) — zero for states whose Gamma is empty.
+    :func:`_lookahead_tail`), None for ``y_b``.  ``key`` is one run's key,
+    or (fused only) R runs' keys ``[R, 2]`` with ``floor [R]``, the states
+    being the R runs' in turn.  Returns (reward [S], cost [S]) — zero for
+    states whose Gamma is empty.
     """
-    k_fit, k_next = prng.split(key)
+    k_fit, k_next = prng.split(key).unbind(-2)
     fused = _fused_mode(s)
-    xi_np, w = acq.gauss_hermite(s.k_gh)
-    xi = torch.as_tensor(xi_np, device=y_b.device)
+    _, w = acq.gauss_hermite(s.k_gh)
+    xi = _gh_nodes(s.k_gh, y_b.device)
     if fused is not None:
         params = _fit_batch_params(k_fit, y_b, m_b, points, left,
                                    thresholds, s, y_split)
+        floor_s = (floor if floor.dim() == 0
+                   else floor.repeat_interleave(y_b.shape[0]
+                                                // floor.shape[0]))
         # The kernel takes contiguous rows; the speculated states are views
         # of broadcasts.
         y_b, m_b, beta_b, bf_b = (a.contiguous()
@@ -226,14 +239,14 @@ def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
             cens_b = cens_b.contiguous()
         out = select_step(
             params.feat, params.thr, params.leaf, y_b, m_b, beta_b, bf_b,
-            points, u, t_max, floor, xi, cens=cens_b, valid=valid,
+            points, u, t_max, floor_s, xi, cens=cens_b, valid=valid,
             conf=s.conf, cens_rel=s.cens_sigma_rel, score_mode="eic",
             use_budget=True, emit_full=False, want_nodes=depth_left > 0,
             force=fused)
         sel, has_cand, eic_sel, mu_sel, sig_sel = out[:5]
         sel = sel.to(torch.int64)
-        r0 = _where(has_cand, eic_sel, 0.0)
-        c0 = _where(has_cand, mu_sel, 0.0)
+        r0 = torch.where(has_cand, eic_sel, 0.0)
+        c0 = torch.where(has_cand, mu_sel, 0.0)
         if depth_left == 0:
             return r0, c0
         c_nodes = out[5]                                         # [S, K]
@@ -256,12 +269,12 @@ def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
             untested = untested & valid[None, :]
         cand = untested & acq.budget_ok(mu, sigma, beta_b[:, None], s.conf,
                                         parts)
-        score = acq.quantize_scores(_where(cand, eic, -math.inf))
+        score = acq.quantize_scores(torch.where(cand, eic, -math.inf))
         sel = torch.argmax(score, dim=1)                         # [S]
         has_cand = cand.any(dim=1)
         take = lambda a: a.gather(1, sel[:, None])[:, 0]
-        r0 = _where(has_cand, take(eic), 0.0)
-        c0 = _where(has_cand, take(mu), 0.0)
+        r0 = torch.where(has_cand, take(eic), 0.0)
+        c0 = torch.where(has_cand, take(mu), 0.0)
         if depth_left == 0:
             return r0, c0
         c_nodes = acq.gh_cost_nodes(take(mu), take(sigma), xi)   # [S, K]
@@ -277,7 +290,8 @@ def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
                                                                m_dim)
     beta_child = ftz(beta_b[:, None] - c_nodes)
     feas = c_nodes <= ftz(t_max * u[sel])[:, None]
-    bf_child = torch.minimum(bf_b[:, None], _where(feas, c_nodes, math.inf))
+    bf_child = torch.minimum(bf_b[:, None],
+                             torch.where(feas, c_nodes, math.inf))
     flat = lambda a: a.reshape((s_dim * k,) + tuple(a.shape[2:]))
     child_frozen = None
     if s.refit == "frozen" and frozen_ctx is not None:
@@ -296,9 +310,9 @@ def _recurse(key, y_b, m_b, beta_b, bf_b, depth_left, *, points, left,
     r_ch = r_ch.reshape(s_dim, k)
     c_ch = c_ch.reshape(s_dim, k)
     gamma = acq._f32(s.gamma)
-    reward = _where(has_cand, ftz(r0 + ftz(acq.no_contract(
+    reward = torch.where(has_cand, ftz(r0 + ftz(acq.no_contract(
         ftz(gamma * acq.gh_expect(r_ch, w))))), 0.0)
-    cost = _where(has_cand, ftz(c0 + acq.gh_expect(c_ch, w)), 0.0)
+    cost = torch.where(has_cand, ftz(c0 + acq.gh_expect(c_ch, w)), 0.0)
     return reward, cost
 
 
@@ -339,28 +353,38 @@ def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, y_nodes,
     reward's addition and the forest mean's product into the path cost's,
     in every program shape (native or padded, la 1 or 2: read from the
     compiled programs).  The pick's ratio takes the sums uncontracted, as
-    its own fusion does (ROADMAP C4)."""
-    m_dim = y.shape[0]
+    its own fusion does (ROADMAP C4).
+
+    The root's rows may carry a leading run axis (``y [R, M]``, ``beta``
+    and ``best_feas [R]``, ``c_nodes [R, M, K]``; the fused path): the
+    R runs' children are then one batch, run after run, under the R keys
+    of ``k_path``."""
+    m_dim = y.shape[-1]
+    lead = tuple(y.shape[:-1])
     k = s.k_gh
     _, w = acq.gauss_hermite(k)
     eye = torch.eye(m_dim, dtype=torch.bool, device=y.device)
     if valid is not None:
         eye = eye & valid[None, :]
-    speculate = lambda nodes: torch.where(eye[:, None, :], nodes[:, :, None],
-                                          y[None, None, :])
+    speculate = lambda nodes: torch.where(eye[:, None, :],
+                                          nodes[..., :, :, None],
+                                          y[..., None, None, :])
     y_means = y_nodes
     if valid is None:
         lanes = torch.arange(m_dim, device=y.device) < m_dim // 8 * 8
         y_means = torch.where(lanes[:, None], c_nodes, y_nodes)
     y1, y1_split = speculate(y_means), speculate(y_nodes)
-    m1 = (obs[None, :] | eye)[:, None, :].expand(m_dim, k, m_dim)
-    beta1 = ftz(beta - c_nodes)
+    m1 = (obs[..., None, :] | eye)[..., :, None, :].expand(
+        lead + (m_dim, k, m_dim))
+    beta1 = ftz(beta[..., None, None] - c_nodes)
     feas1 = c_nodes <= ftz(t_max * u)[:, None]
-    bf1 = torch.minimum(best_feas, _where(feas1, c_nodes, math.inf))
-    flat = lambda a: a.reshape((m_dim * k,) + tuple(a.shape[2:]))
+    bf1 = torch.minimum(best_feas[..., None, None],
+                        torch.where(feas1, c_nodes, math.inf))
+    flat = lambda a: a.reshape((-1,) + tuple(a.shape[len(lead) + 2:]))
     cens1 = None
     if cens is not None:
-        cens1 = flat(cens[None, None, :].expand(m_dim, k, m_dim))
+        cens1 = flat(cens[..., None, None, :].expand(lead + (m_dim, k,
+                                                             m_dim)))
     r1, c1 = _recurse(
         k_path, flat(y1), flat(m1), flat(beta1), flat(bf1), s.la - 1,
         points=points, left=left, thresholds=thresholds, u=u, t_max=t_max,
@@ -368,16 +392,16 @@ def _lookahead_tail(k_path, y, obs, beta, best_feas, c_nodes, y_nodes,
         y_split=flat(y1_split))
     gamma = acq._f32(s.gamma)
     future = ftz(acq.no_contract(
-        ftz(gamma * acq.gh_expect(r1.reshape(m_dim, k), w))))
-    path = acq.gh_expect(c1.reshape(m_dim, k), w)
+        ftz(gamma * acq.gh_expect(r1.reshape(lead + (m_dim, k)), w))))
+    path = acq.gh_expect(c1.reshape(lead + (m_dim, k)), w)
     ratio = ftz(ftz(reward + future)
                 / torch.clamp_min(ftz(cost + path), _EPS))
-    score = acq.quantize_scores(_where(gamma0, ratio, -math.inf))
+    score = acq.quantize_scores(torch.where(gamma0, ratio, -math.inf))
     ei, cp, mu_parts = root_factors
     reward = acq.fma(ei, cp, future)
     cost = (ftz(cost + path) if mu_parts is None
             else acq.fma(mu_parts[0], mu_parts[1], path))
-    return torch.argmax(score), reward, cost
+    return torch.argmax(score, dim=-1), reward, cost
 
 
 def _root_common(y, obs_mask, t_max, u, cens):
@@ -387,33 +411,54 @@ def _root_common(y, obs_mask, t_max, u, cens):
         # An aborted run never revealed its runtime: it cannot be the
         # feasible incumbent (its billed y is only a lower bound).
         feas_obs = feas_obs & ~cens.to(torch.bool)
-    best_feas = _where(feas_obs, y, math.inf).amin()
+    best_feas = torch.where(feas_obs, y, math.inf).amin(dim=-1)
     return obs, best_feas
 
 
-def _select_next_fused(key, y, obs_mask, beta, points, left, thresholds, u,
-                       t_max, s: Settings, cens, valid, mode: str):
-    """Fused-root twin of :func:`_select_next_impl` (same contract): the
-    root sweep is one ``select_step`` call with ``emit_full=True``."""
-    floor = _sigma_floor(y, obs_mask, s.sigma_floor_rel)
-    k_root, k_path = prng.split(key)
+def _gh_nodes(k: int, device) -> torch.Tensor:
+    """The Gauss-Hermite nodes as a float32 tensor on ``device``, made once
+    (a selection step copies no constant to the card)."""
+    key = (k, torch.device(device))
+    xi = _GH_NODES.get(key)
+    if xi is None:
+        xi = torch.as_tensor(acq.gauss_hermite(k)[0], device=device)
+        _GH_NODES[key] = xi
+    return xi
+
+
+_GH_NODES: dict = {}
+
+
+def _select_fused_slots(keys, y, obs_mask, beta, points, left, thresholds, u,
+                        t_max, s: Settings, cens, valid, mode: str):
+    """The fused selection of R runs that share one job's rows (space, unit
+    prices, SLO): keys [R, 2]; y, obs_mask[, cens]: [R, M]; beta: [R].
+
+    One root forest fit over the R runs (each under its own root key), the
+    root sweep as one ``select_step`` call at S = R, then one call a
+    lookahead level at S = R·M·K and R·M·K²: the kernel takes each state's
+    own sigma floor, and the shared rows once.  Each run's result is the
+    one it gets alone (R = 1), bit for bit.  Returns ([R] indices, [R]
+    valid flags, diagnostics stacked over R).
+    """
+    floor = _sigma_floor(y, obs_mask, s.sigma_floor_rel)          # [R]
+    k_root, k_path = prng.split(keys).unbind(-2)
     params, assign = trees.fit_forest(k_root, y, obs_mask, points, left,
                                       thresholds, n_trees=s.n_trees,
-                                      depth=s.depth, node_sums="lanes")
+                                      depth=s.depth, node_sums="lanes",
+                                      program_states=1)
     obs, best_feas = _root_common(y, obs_mask, t_max, u, cens)
     score_mode, use_budget = _policy(s)
     lookahead = s.policy == "lynceus" and s.la > 0
-    xi = torch.as_tensor(acq.gauss_hermite(s.k_gh)[0], device=y.device)
+    cens = None if cens is None else cens.to(torch.bool)
     out = select_step(
-        params.feat[None], params.thr[None], params.leaf[None], y[None],
-        obs[None], beta.reshape(1), best_feas.reshape(1), points, u, t_max,
-        floor, xi, cens=None if cens is None else cens.to(torch.bool)[None],
-        valid=valid, conf=s.conf, cens_rel=s.cens_sigma_rel,
-        score_mode=score_mode, use_budget=use_budget, emit_full=True,
-        want_nodes=lookahead, force=mode)
-    mu0, sig0, eic0 = out[0][0], out[1][0], out[2][0]
-    ystar0, cand0 = out[3][0], out[4][0]
-    sel0, has0 = out[5][0].to(torch.int64), out[6][0]
+        params.feat, params.thr, params.leaf, y, obs, beta, best_feas, points,
+        u, t_max, floor, _gh_nodes(s.k_gh, y.device), cens=cens, valid=valid,
+        conf=s.conf, cens_rel=s.cens_sigma_rel, score_mode=score_mode,
+        use_budget=use_budget, emit_full=True, want_nodes=lookahead,
+        force=mode)
+    mu0, sig0, eic0, ystar0, cand0 = out[:5]
+    sel0, has0 = out[5].to(torch.int64), out[6]
     diagnostics = {"mu": acq.quantize_scores(mu0),
                    "sigma": acq.quantize_scores(sig0),
                    "ei_c": acq.quantize_scores(eic0),
@@ -422,8 +467,8 @@ def _select_next_fused(key, y, obs_mask, beta, points, left, thresholds, u,
     def finish(sel, valid_flag):
         if s.timeout:
             diagnostics["timeout"] = acq.timeout_cap(
-                best_feas, _at(sig0, sel), _at(u, sel), beta, t_max,
-                s.timeout_kappa, s.timeout_tmax_mult)
+                best_feas, sig0.gather(1, sel[:, None])[:, 0], u[sel], beta,
+                t_max, s.timeout_kappa, s.timeout_tmax_mult)
         return sel, valid_flag, diagnostics
 
     if not lookahead:
@@ -432,19 +477,30 @@ def _select_next_fused(key, y, obs_mask, beta, points, left, thresholds, u,
     # computed them, for the reward and path-cost diagnostics.
     parts = None
     if cens is None:
-        parts = trees.forest_mu_sigma(params.leaf.gather(1, assign), floor,
+        preds = params.leaf.gather(2, assign).transpose(0, 1)    # [B, R, M]
+        parts = trees.forest_mu_sigma(preds, floor[:, None],
                                       with_parts=True)[2]
-    root_factors = acq.ei_constrained_factors(mu0, sig0, ystar0, u, t_max,
-                                              parts) + (parts,)
+    root_factors = acq.ei_constrained_factors(
+        mu0, sig0, ystar0[:, None], u, t_max, parts) + (parts,)
     sel, reward, cost = _lookahead_tail(
-        k_path, y, obs, beta, best_feas, out[7][0], out[8][0], eic0, mu0,
-        cand0, root_factors,
-        points=points, left=left, thresholds=thresholds, u=u, t_max=t_max,
-        floor=floor, s=s, frozen_ctx=None, cens=None if cens is None
-        else cens.to(torch.bool), valid=valid)
+        k_path, y, obs, beta, best_feas, out[7], out[8], eic0, mu0, cand0,
+        root_factors, points=points, left=left, thresholds=thresholds, u=u,
+        t_max=t_max, floor=floor, s=s, frozen_ctx=None, cens=cens,
+        valid=valid)
     diagnostics["reward"] = acq.quantize_scores(reward)
     diagnostics["path_cost"] = acq.quantize_scores(cost)
-    return finish(sel, cand0.any())
+    return finish(sel, cand0.any(dim=1))
+
+
+def _select_next_fused(key, y, obs_mask, beta, points, left, thresholds, u,
+                       t_max, s: Settings, cens, valid, mode: str):
+    """Fused twin of :func:`_select_next_impl` (same contract): the R = 1
+    case of :func:`_select_fused_slots`."""
+    sel, flag, diag = _select_fused_slots(
+        key[None], y[None], obs_mask[None], torch.as_tensor(beta).reshape(1),
+        points, left, thresholds, u, t_max, s,
+        None if cens is None else cens[None], valid, mode)
+    return sel[0], flag[0], {k: v[0] for k, v in diag.items()}
 
 
 def _select_next_impl(key, y, obs_mask, beta, points, left, thresholds, u,
@@ -485,16 +541,16 @@ def _select_next_impl(key, y, obs_mask, beta, points, left, thresholds, u,
         return sel, valid_flag, diagnostics
 
     if s.policy == "bo":
-        score = acq.quantize_scores(_where(untested, eic0, -math.inf))
+        score = acq.quantize_scores(torch.where(untested, eic0, -math.inf))
         return finish(torch.argmax(score), untested.any())
     if s.policy == "la0" or (s.policy == "lynceus" and s.la == 0):
         ratio = ftz(eic0 / torch.clamp_min(mu0, _EPS))
-        score = acq.quantize_scores(_where(gamma0, ratio, -math.inf))
+        score = acq.quantize_scores(torch.where(gamma0, ratio, -math.inf))
         return finish(torch.argmax(score), gamma0.any())
     if s.policy != "lynceus":
         raise ValueError(f"unknown policy {s.policy!r}")
 
-    xi = torch.as_tensor(acq.gauss_hermite(s.k_gh)[0], device=y.device)
+    xi = _gh_nodes(s.k_gh, y.device)
     c_nodes = acq.gh_cost_nodes(mu0, sig0, xi)                    # [M, K]
     y_nodes = acq.gh_cost_nodes(mu0, sig0, xi, parts)
     frozen_ctx = None
@@ -521,23 +577,138 @@ select_next = _select_next_impl
 
 def select_next_batched(keys, y, obs_mask, beta, points, left, thresholds, u,
                         t_max, s: Settings, cens=None, valid=None):
-    """NextConfig for R slots that share one space and job.
+    """NextConfig for R independent slots at once (the batched harness's
+    entry; the sequential oracle is its R = 1 case).
 
-    keys: [R, 2]; y, obs_mask[, cens]: [R, M]; beta: [R]; points [M, F];
-    u[, valid]: [M]; t_max: scalar.  Each slot is selected on its own, so a
-    slot's result never depends on R.  Returns ([R] indices, [R] valid
-    flags, diagnostics stacked over R).
+    keys: [R, 2]; y, obs_mask[, cens]: [R, M]; beta: [R].  ``u`` is [M]
+    with a scalar ``t_max`` (one job for every slot) or [R, M] with
+    ``t_max`` [R] (each slot its own job's prices and SLO); the space
+    tensors are shared (``points [M, F]``, ``left [M, F, T]``,
+    ``thresholds [F, T]``) or per slot (``[R, ...]``, geometry-bucketed
+    jobs, which require ``valid``); ``valid`` is None, [M] or [R, M].
+
+    Slots that share one job's rows are selected together
+    (:func:`_select_slots`); which slots those are is read from the
+    per-slot rows on the host.  A slot's result is bitwise independent of
+    R and of the slots that share its launches.  Returns ([R] indices, [R]
+    valid flags, diagnostics stacked over R).
     """
-    picks, flags, diags = [], [], []
-    for r in range(keys.shape[0]):
-        i, v, d = _select_next_impl(
-            keys[r], y[r], obs_mask[r], beta[r], points, left, thresholds,
-            u, t_max, s, None if cens is None else cens[r], valid)
-        picks.append(i)
-        flags.append(v)
-        diags.append(d)
-    return (torch.stack(picks), torch.stack(flags),
-            {k: torch.stack([d[k] for d in diags]) for k in diags[0]})
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=y.device)
+    per_slot_u = u.dim() == 2
+    if per_slot_u != (t_max.dim() == 1):
+        raise ValueError("per-slot u ([R, M]) requires per-slot t_max ([R]) "
+                         "and vice versa")
+    per_slot_space = points.dim() == 3
+    if per_slot_space and valid is None:
+        raise ValueError("per-slot space tensors ([R, M, F]) come from "
+                         "geometry bucketing and require a validity mask")
+    per_slot_valid = valid is not None and valid.dim() == 2
+    _SELECTOR_PROGRAMS.add((
+        tuple(keys.shape), tuple(y.shape), tuple(points.shape),
+        tuple(thresholds.shape), u.dim(), None if cens is None else "cens",
+        None if valid is None else valid.dim(), s))
+    rows = [a for a, per in ((u, per_slot_u), (t_max, per_slot_u),
+                             (points, per_slot_space),
+                             (thresholds, per_slot_space),
+                             (valid, per_slot_valid)) if per]
+    slots = {b"": list(range(y.shape[0]))}
+    if rows:
+        slots = {}
+        for r, row in enumerate(zip(*(a.cpu().numpy() for a in rows))):
+            slots.setdefault(b"".join(a.tobytes() for a in row),
+                             []).append(r)
+    groups = []
+    for members in slots.values():
+        r0 = members[0]
+        pick = lambda a, per: a[r0] if per else a
+        groups.append((members if len(slots) > 1 else None, (
+            pick(points, per_slot_space), pick(left, per_slot_space),
+            pick(thresholds, per_slot_space), pick(u, per_slot_u),
+            pick(t_max, per_slot_u),
+            None if valid is None else pick(valid, per_slot_valid))))
+    return _select_slots(keys, y, obs_mask, beta, cens, groups, s)
+
+
+def _device_index(index, device) -> torch.Tensor:
+    """A host list of indices as an int64 tensor on ``device``, copied
+    without waiting for the device."""
+    return torch.as_tensor(np.asarray(index, np.int64)).to(device,
+                                                           non_blocking=True)
+
+
+def _select_slots(keys, y, obs_mask, beta, cens, groups, s: Settings):
+    """Select R slots grouped by job: ``groups`` lists ``(slots, space)``
+    with ``slots`` a host list of slot indices (None: every slot) and
+    ``space = (points, left, thresholds, u [M], t_max, valid)`` the rows
+    those slots share.
+
+    Fused (``_fused_mode``): each group is one :func:`_select_fused_slots`
+    call, so one root fit and one ``select_step`` launch a lookahead level
+    whatever its size.  The unfused program (``fused_selector="ref"``,
+    ``refit="frozen"``) selects slot by slot.  Results come back in slot
+    order."""
+    fused = _fused_mode(s)
+    results, order = [], []
+    for members, (points, left, thresholds, u, t_max, valid) in groups:
+        if members is None:
+            part = (keys, y, obs_mask, beta, cens)
+        else:
+            idx = _device_index(members, y.device)
+            part = tuple(None if a is None else a.index_select(0, idx)
+                         for a in (keys, y, obs_mask, beta, cens))
+            order += members
+        if fused is not None:
+            results.append(_select_fused_slots(
+                *part[:4], points, left, thresholds, u, t_max, s, part[4],
+                valid, fused))
+            continue
+        k_g, y_g, m_g, b_g, c_g = part
+        one = [_select_next_impl(k_g[r], y_g[r], m_g[r], b_g[r], points, left,
+                                 thresholds, u, t_max, s,
+                                 None if c_g is None else c_g[r], valid)
+               for r in range(k_g.shape[0])]
+        results.append((torch.stack([o[0] for o in one]),
+                        torch.stack([o[1] for o in one]),
+                        {k: torch.stack([o[2][k] for o in one])
+                         for k in one[0][2]}))
+    if len(results) == 1:
+        return results[0]
+    back = _device_index(np.argsort(order, kind="stable"), y.device)
+    cat = lambda parts: torch.cat(parts).index_select(0, back)
+    return (cat([r[0] for r in results]), cat([r[1] for r in results]),
+            {k: cat([r[2][k] for r in results]) for k in results[0][2]})
+
+
+def slot_price_rows(job_ids, rid, u, t_max):
+    """Each lane slot's price row and SLO for slot-indexed selection.
+
+    ``job_ids`` is None for a single-job episode: every slot shares the
+    one ``u [M]`` row and scalar ``t_max`` (returned untouched).  Otherwise
+    ``job_ids`` ([N] int) maps run ids to job indices and ``rid`` ([R],
+    clamped non-negative) holds each slot's run id: the slots take their
+    run's ``u [R, M]`` row and ``t_max [R]`` entry, and the per-slot job
+    index ``jid`` rides along for the caller's table gathers.  Returns
+    ``(u_slots, t_max_slots, jid_or_None)``.
+    """
+    if job_ids is None:
+        return u, t_max, None
+    jid = job_ids[rid]
+    return u[jid], t_max[jid], jid
+
+
+# The geometries (slots, shapes, per-slot ranks, Settings) the directly
+# invoked batched selector has run: the port's counterpart of the
+# reference's jit cache entries (eager PyTorch compiles nothing).
+_SELECTOR_PROGRAMS: set = set()
+
+
+def selector_cache_size() -> int:
+    """Distinct program geometries of the directly invoked selector
+    (:func:`select_next_batched`: the oracle path through
+    ``make_selector``/``make_batch_selector``).  The batched harness's
+    selections are counted by ``optimizer.episode_cache_size`` instead,
+    as the reference inlines them into its episode programs."""
+    return len(_SELECTOR_PROGRAMS)
 
 
 def space_arrays(space, unit_price: np.ndarray, device="cuda"):

@@ -239,20 +239,29 @@ def make_left_table(points, thresholds, device=None) -> torch.Tensor:
     return (points[:, :, None] <= thresholds[None, :, :]).to(torch.float32)
 
 
+# One-hot elements ([trees, M, leaves]) a chunk of a batched fit may hold:
+# 4 GiB of float32 a temporary, a few of them at once at the deepest level.
+_FIT_CHUNK_ELEMS = 1 << 30
+
 # The row width at which the reference's root node sum of the split search
 # is a tree of halves (read from its compiled padded selector programs).
 _BUCKET_ROW = 32
 
 
-def _fit_trees(y, w, left, *, depth: int, min_weight: float, y_split=None,
-               node_sums: str = "points"):
-    """Fit N independent trees. y, w: [N, M]; left: [M, F, T].  ``y_split``
-    (default ``y``) is the y the split search's node sums read; ``y`` the
-    one the leaf means read; ``node_sums`` the order of those sums (see
+def _fit_trees(y, w, left, thresholds, *, depth: int, min_weight: float,
+               y_split=None, node_sums: str = "points",
+               program_rows: int | None = None):
+    """Fit N independent trees. y, w: [N, M]; left: [M, F, T]; thresholds:
+    [F, T].  ``y_split`` (default ``y``) is the y the split search's node
+    sums read; ``y`` the one the leaf means read; ``node_sums`` the order
+    of those sums and ``program_rows`` (default N) the trees of the
+    reference program whose split-search product is followed (see
     :func:`fit_forest`).
 
-    Returns (assign [N, M], leaf [N, 2**depth], feat levels, thr meta)."""
+    Returns (assign [N, M], leaf [N, 2**depth], feat [N, D, W] int32,
+    thr [N, D, W])."""
     n_rows, m = w.shape
+    program_rows = n_rows if program_rows is None else program_rows
     _, f_dims, t_dims = left.shape
     width = 2 ** (depth - 1) if depth > 0 else 1
     dev = w.device
@@ -289,7 +298,7 @@ def _fit_trees(y, w, left, *, depth: int, min_weight: float, y_split=None,
         sl_w = torch.matmul((onehot * w[:, :, None]).transpose(1, 2),
                             left_flat)                               # [N,n,FT]
         sl_wy = _xla_dot((onehot * wys[:, :, None]).transpose(1, 2),
-                         left_flat, rows=n_rows * 2 * n)
+                         left_flat, rows=program_rows * 2 * n)
         sl_w = sl_w.reshape(n_rows, n, f_dims, t_dims)
         sl_wy = sl_wy.reshape(n_rows, n, f_dims, t_dims)
         sr_w = sw_n[:, :, None, None] - sl_w
@@ -329,13 +338,30 @@ def _fit_trees(y, w, left, *, depth: int, min_weight: float, y_split=None,
         val = torch.where(sw2 > mw_child, swy2 / torch.clamp_min(sw2, _EPS),
                           parent)
         thr_meta.append((f_sel, t_sel, degenerate, n))
-    return assign, val, feat_lvls, thr_meta
+    if depth == 0:
+        empty = lambda dt: torch.zeros((n_rows, 0, width), dtype=dt,
+                                       device=dev)
+        return assign, val, empty(torch.int32), empty(torch.float32)
+    thr_rows = []
+    for f_sel, t_sel, degenerate, n in thr_meta:
+        tv = thresholds[f_sel, t_sel]
+        tv = torch.where(degenerate, torch.full_like(tv, math.inf), tv)
+        row = torch.full((n_rows, width), math.inf, dtype=torch.float32,
+                         device=dev)
+        row[:, :n] = tv
+        thr_rows.append(row)
+    return (assign, val, torch.stack(feat_lvls, dim=1),
+            torch.stack(thr_rows, dim=1))
 
 
 def fit_forest(key, y, obs_mask, points, left, thresholds, *, n_trees: int,
                depth: int, min_weight: float = 1.0, y_split=None,
-               node_sums: str = "points"):
+               node_sums: str = "points", program_states: int | None = None):
     """Fit the bagged forest, for one state or a batch of states.
+
+    Each state's fit is a function of its own key and rows only: states
+    are fitted in chunks of at most ``_FIT_CHUNK_ELEMS`` one-hot elements,
+    which bounds the temporaries of a large batch and changes no bit.
 
     Args:
       key: PRNG key ``[..., 2]`` (drives the Poisson bootstrap).
@@ -357,43 +383,41 @@ def fit_forest(key, y, obs_mask, points, left, thresholds, *, n_trees: int,
         (:func:`_lane_sum_by_node`), which every fit of the reference's
         selector programs compiles to (read from their dumps at M = 15,
         24 and 32, native and padded, root, children and grandchildren).
+      program_states: the states of one reference program, whose count
+        sets the shape, and so the order, of its split-search product
+        (``_xla_dot``'s rows); None: all the states given.  A batch of R
+        runs' selections passes one run's share, so that each run's fit
+        has the bits it has alone.
     Returns:
       (ForestParams, per-tree leaf assignment ``[..., B, M]``).
     """
     del points
     lead = y.shape[:-1]
     m = y.shape[-1]
-    width = 2 ** (depth - 1) if depth > 0 else 1
     y = y.reshape(-1, m).to(torch.float32)
     obs = obs_mask.reshape(-1, m).to(torch.float32)
     n_states = y.shape[0]
     boot = bootstrap_weights(key.reshape(-1, 2), n_trees, m)        # [S,B,M]
     w = boot * obs[:, None, :]
     dead = w.sum(dim=2, keepdim=True) < _f32(min_weight)
-    w = torch.where(dead, obs[:, None, :].expand_as(w), w)
+    w = torch.where(dead, obs[:, None, :].expand_as(w), w).reshape(-1, m)
     rows = lambda v: v.reshape(-1, m).to(torch.float32)[:, None, :].expand(
         n_states, n_trees, m).reshape(-1, m)
-    assign, leaf, feat_lvls, thr_meta = _fit_trees(
-        rows(y), w.reshape(-1, m), left, depth=depth, min_weight=min_weight,
-        y_split=None if y_split is None else rows(y_split),
-        node_sums=node_sums)
-    n_rows = n_states * n_trees
-    if depth > 0:
-        feat = torch.stack(feat_lvls, dim=1)
-        thr_rows = []
-        for f_sel, t_sel, degenerate, n in thr_meta:
-            tv = thresholds[f_sel, t_sel]
-            tv = torch.where(degenerate, torch.full_like(tv, math.inf), tv)
-            row = torch.full((n_rows, width), math.inf, dtype=torch.float32,
-                             device=y.device)
-            row[:, :n] = tv
-            thr_rows.append(row)
-        thr = torch.stack(thr_rows, dim=1)
-    else:
-        feat = torch.zeros((n_rows, 0, width), dtype=torch.int32,
-                           device=y.device)
-        thr = torch.zeros((n_rows, 0, width), dtype=torch.float32,
-                          device=y.device)
+    y_rows = rows(y)
+    ys_rows = None if y_split is None else rows(y_split)
+    program_rows = n_trees * (n_states if program_states is None
+                              else program_states)
+    step = n_trees * max(1, _FIT_CHUNK_ELEMS // (n_trees * m * 2 ** depth))
+    parts = []
+    for r0 in range(0, n_states * n_trees, step):
+        cut = slice(r0, r0 + step)
+        parts.append(_fit_trees(
+            y_rows[cut], w[cut], left, thresholds, depth=depth,
+            min_weight=min_weight,
+            y_split=None if ys_rows is None else ys_rows[cut],
+            node_sums=node_sums, program_rows=program_rows))
+    assign, leaf, feat, thr = (p[0] if len(parts) == 1 else torch.cat(p)
+                               for p in zip(*parts))
     shape = lead + (n_trees,)
     params = ForestParams(feat.reshape(shape + feat.shape[1:]),
                           thr.reshape(shape + thr.shape[1:]),

@@ -174,6 +174,7 @@ struct Params {
   const float* beta; const float* bf;
   const float* points; const float* u; const uint8_t* valid;
   const float* xi; const float* scal;
+  const float* sig_floor;   // [S]: each state's sigma floor
   float conf_q, cens_rel;
   int S, B, D, W, L, M, F, K;
   int score_ratio, use_budget, emit_full, want_nodes;
@@ -373,7 +374,6 @@ select_step_kernel(Params p) {
   __syncthreads();
 
   const float t_max = p.scal[0];
-  const float floor_ = p.scal[1];
   // The reference's acc / B compiles to acc * f32(1/B) (XLA rewrites a
   // division by a constant into a product with its reciprocal).
   const float inv_b = 1.0f / static_cast<float>(NB);
@@ -382,6 +382,8 @@ select_step_kernel(Params p) {
 
   for (int it = 0; s < p.S; ++it, s += n_groups) {
     unsigned char* st = g + (it & 1) * l.stage_bytes;
+    // Each state's own sigma floor (a launch may hold several runs' states).
+    const float floor_ = p.sig_floor[s];
     cp_async_wait_all();
     group_sync(bar, lanes);
     // Repack the forest as a heap, tree-minor (entry h·NB + b): internal
@@ -610,14 +612,16 @@ extern "C" int select_step_attributes(int B, int* regs, int* local_bytes) {
 // blocks of `threads` = groups · wps · 32 threads and `smem` bytes of
 // dynamic shared memory); returns cudaGetLastError() after the launch (0
 // on success), or cudaErrorInvalidValue for a geometry the kernel does not
-// take.  Optional inputs (cens, valid, xi) and the outputs of the mode not
+// take.  scal [1] is t_max, sig_floor [S] each state's sigma floor.
+// Optional inputs (cens, valid, xi) and the outputs of the mode not
 // requested are null.
 extern "C" int select_step_launch(
     const int* feat, const float* thr, const float* leaf, const float* y,
     const uint8_t* obs, const uint8_t* cens, const float* beta,
     const float* bf, const float* points, const float* u,
-    const uint8_t* valid, const float* xi, const float* scal, float conf_q,
-    float cens_rel, int S, int B, int D, int W, int L, int M, int F, int K,
+    const uint8_t* valid, const float* xi, const float* scal,
+    const float* sig_floor, float conf_q, float cens_rel, int S, int B,
+    int D, int W, int L, int M, int F, int K,
     int score_ratio, int use_budget, int emit_full, int want_nodes,
     int grid, int threads, int wps, int groups, int smem,
     float* mu, float* sigma, float* eic, float* ystar, uint8_t* cand,
@@ -631,9 +635,10 @@ extern "C" int select_step_launch(
       || threads > kMaxThreads || lay.total > smem)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{feat, thr, leaf, y, obs, cens, beta, bf, points, u, valid, xi,
-           scal, conf_q, cens_rel, S, B, D, W, L, M, F, K, score_ratio,
-           use_budget, emit_full, want_nodes, wps, groups, mu, sigma, eic,
-           ystar, cand, sel, has, nodes, nodes_y, eic_sel, mu_sel, sig_sel};
+           scal, sig_floor, conf_q, cens_rel, S, B, D, W, L, M, F, K,
+           score_ratio, use_budget, emit_full, want_nodes, wps, groups, mu,
+           sigma, eic, ystar, cand, sel, has, nodes, nodes_y, eic_sel,
+           mu_sel, sig_sel};
   // The opt-in above 48 KB, once per instantiation and size.
   static int opted[kMaxTrees] = {};
   if (smem > 48 * 1024 && smem > opted[B - 1]) {

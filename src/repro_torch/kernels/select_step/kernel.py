@@ -132,7 +132,7 @@ def plan(s_dim, n_trees, depth, m_dim, n_feat, *, cens, sm_count,
 
 def _fn():
     return capi.entry(_OP, "select_step_launch",
-                      [capi.P] * 13 + [capi.F, capi.F] + [capi.I] * 17
+                      [capi.P] * 14 + [capi.F, capi.F] + [capi.I] * 17
                       + [capi.P] * 12 + [capi.P])
 
 
@@ -153,6 +153,19 @@ def _sm_count(index):
 
 def _check(name, t, dtype, shape, device):
     capi.check(_OP, name, t, dtype, shape, device)
+
+
+def state_floor(floor, s_dim, device) -> torch.Tensor:
+    """The sigma floor of each of ``s_dim`` states as a contiguous float32
+    ``[S]`` tensor on ``device``: a ``[S]`` tensor as it is, a Python number
+    or a 0-d (or one-element) tensor broadcast to every state."""
+    f = torch.as_tensor(floor, dtype=torch.float32, device=device)
+    if f.numel() == 1 and s_dim != 1:
+        return f.reshape(1).expand(s_dim).contiguous()
+    if f.shape not in ((s_dim,), ()):
+        raise ValueError(f"{_OP}: floor of shape {tuple(f.shape)}; expected "
+                         f"a scalar or one a state, ({s_dim},)")
+    return f.reshape(s_dim).contiguous()
 
 
 def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
@@ -200,10 +213,9 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
     if want_nodes:
         k_gh = xi.shape[0]
         _check("xi", xi, torch.float32, (k_gh,), dev)
-    scal = torch.stack([torch.as_tensor(t_max, dtype=torch.float32,
-                                        device=dev).reshape(()),
-                        torch.as_tensor(floor, dtype=torch.float32,
-                                        device=dev).reshape(())])
+    scal = torch.as_tensor(t_max, dtype=torch.float32,
+                           device=dev).reshape(1)
+    sig_floor = state_floor(floor, s_dim, dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
     sel = torch.empty((s_dim,), dtype=torch.int32, device=dev)
@@ -229,7 +241,7 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
         out = (sel, has, eic_sel, mu_sel, sig_sel)
     out += tuple(a for a in (nodes, nodes_y) if a is not None)
     inputs = (feat, thr, leaf, y, obs, cens, beta, bf, points, u, valid,
-              xi if want_nodes else None, scal)
+              xi if want_nodes else None, scal, sig_floor)
     outputs = (mu, sig, eic, ystar, cand, sel, has, nodes, nodes_y, eic_sel,
                mu_sel, sig_sel)
     args = (*map(capi.ptr, inputs),
@@ -241,7 +253,7 @@ def prepare(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
             geo.threads, geo.warps_per_state, geo.groups, geo.smem,
             *map(capi.ptr, outputs), capi.stream(dev))
     return args, out, (feat, thr, leaf, y, obs, cens, beta, bf, points, u,
-                       valid, xi, scal)
+                       valid, xi, scal, sig_floor)
 
 
 def launch(args) -> None:
@@ -255,8 +267,9 @@ def select_step_cuda(feat, thr, leaf, y, obs, beta, bf, points, u, t_max,
     """The fused selector step on the card; same contract and outputs as
     :func:`repro_torch.kernels.select_step.ref.select_step_ref`.
 
-    ``t_max`` and ``floor`` may be Python numbers or float32 tensors on the
-    card (kept there: no host round trip per call).
+    ``t_max`` may be a Python number or a float32 tensor on the card, and
+    ``floor`` the same or a float32 ``[S]`` tensor, each state's own sigma
+    floor (kept on the card: no host round trip per call).
     """
     args, out, _keep = prepare(feat, thr, leaf, y, obs, beta, bf, points, u,
                                t_max, floor, xi, cens, valid, **kw)

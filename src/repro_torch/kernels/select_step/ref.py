@@ -31,7 +31,8 @@ def select_step_ref(feat, thr, leaf, y, obs, beta, bf, points, u, t_max,
 
     feat/thr: [S, B, D, W]; leaf: [S, B, L]; y/obs[/cens]: [S, M];
     beta/bf: [S]; points: [M, F]; u[/valid]: [M]; xi: [K] (required iff
-    ``want_nodes``); t_max/floor: scalars.
+    ``want_nodes``); t_max: a scalar; floor: a scalar or [S], each state's
+    own sigma floor (the states of several runs share a launch).
 
     Returns ``emit_full=False``: (sel i32, has_cand bool, eic_sel, mu_sel,
     sig_sel[, nodes [S, K]]); ``emit_full=True``: (mu, sigma, eic [S, M],
@@ -46,6 +47,8 @@ def select_step_ref(feat, thr, leaf, y, obs, beta, bf, points, u, t_max,
     dev = y.device
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     points, t_max, floor = f32(points), f32(t_max), f32(floor)
+    if floor.dim() == 1:
+        floor = floor[:, None]                                   # [S, 1]
     obs = obs.to(torch.bool)
     preds = trees.predict_forest(
         trees.ForestParams(feat, f32(thr), f32(leaf)), points)    # [S, B, M]

@@ -4,8 +4,8 @@ The mutation self-check (each broken fixture gives exactly one finding of
 its rule, the clean twins none), with the fixture names and rules of the
 JAX package's ``repro.analysis.fixtures``; the per-rule targeted programs
 of ``tests/test_analysis_audit.py`` in torch; the kernel launch path,
-rehearsed with an opaque stand-in kernel; registered selector programs at
-a small geometry; and the gate's command line.
+rehearsed with an opaque stand-in kernel; registered selector and episode
+programs at a small geometry; and the gate's command line.
 """
 
 import math
@@ -185,6 +185,10 @@ def test_kernel_launch_is_followed_through_its_declared_plain_version(
     "selector/lynceus/padded",
     "selector/lynceus/padded/fused",
     "selector/lynceus/padded/timeout",
+    "episode/lockstep",
+    "episode/lockstep/timeout",
+    "episode/segment",
+    "episode/segment/bucketed",
 ])
 def test_registered_program_audits_clean(name):
     spec = {s.name: s for s in registered_programs()}[name]

@@ -136,14 +136,53 @@ def test_kernel_demanded_on_cpu_tensors_raises():
         tkernel.select_step_cuda(*targs, T_MAX, FLOOR, **tkw)
 
 
+@pytest.mark.parametrize("emit_full,want_nodes,with_cens",
+                         list(itertools.product([False, True], repeat=3)))
+def test_floor_per_state_equals_one_state_calls(emit_full, want_nodes,
+                                                with_cens):
+    """A launch may hold several runs' states, each with its own sigma
+    floor ([S]): each state's outputs are those of its call alone."""
+    d = _inputs(seed=11)
+    targs, tkw = _args(d, torch.as_tensor, with_cens, True)
+    s_dim = targs[3].shape[0]
+    floor = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.01, 1.0, s_dim).astype(np.float32))
+    kw = dict(emit_full=emit_full, want_nodes=want_nodes, valid=tkw["valid"])
+    got = select_step_ref(*targs, T_MAX, floor, tkw["xi"], cens=tkw["cens"],
+                          **kw)
+    for i in range(s_dim):
+        one = lambda a: None if a is None else a[i:i + 1]
+        want = select_step_ref(*map(one, targs[:7]), *targs[7:], T_MAX,
+                               floor[i], tkw["xi"], cens=one(tkw["cens"]),
+                               **kw)
+        for a, b in zip(got, want):
+            assert a[i:i + 1].numpy().tobytes() == b.numpy().tobytes(), i
+    # The floors bind: one floor for every state gives other outputs.
+    same = select_step_ref(*targs, T_MAX, floor.max(), tkw["xi"],
+                           cens=tkw["cens"], **kw)
+    assert any(not torch.equal(a, b) for a, b in zip(got, same))
+
+
+def test_state_floor_broadcasts_a_scalar_and_checks_its_shape():
+    assert tkernel.state_floor(0.05, 4, "cpu").tolist() == [
+        np.float32(0.05)] * 4
+    assert tkernel.state_floor(torch.tensor(0.5), 1, "cpu").shape == (1,)
+    per = torch.arange(3, dtype=torch.float32)
+    assert torch.equal(tkernel.state_floor(per, 3, "cpu"), per)
+    with pytest.raises(ValueError, match="floor"):
+        tkernel.state_floor(per, 4, "cpu")
+
+
 # The launch plan (pure Python, no card): the tf-cnn main path's three
 # launches (M = 384 points of F = 5 features, B = 10 trees of depth 4, with
-# censoring) on an H100's 132 SMs.
+# censoring) on an H100's 132 SMs; then the batched harness's launches at
+# 2 and 11 runs (S = R, R·M·K, R·M·K²).
 TF_CNN = dict(n_trees=10, depth=4, m_dim=384, n_feat=5)
 
 
-@pytest.mark.parametrize("s_dim,lanes,groups", [(1, 384, 1), (1152, 64, 5),
-                                                (3456, 64, 6)])
+@pytest.mark.parametrize("s_dim,lanes,groups", [
+    (1, 384, 1), (1152, 64, 5), (3456, 64, 6), (2, 64, 1), (2304, 64, 6),
+    (6912, 64, 6), (11, 64, 1), (12672, 64, 6), (38016, 64, 6)])
 def test_plan_lanes_per_state(s_dim, lanes, groups):
     p = tkernel.plan(s_dim, **TF_CNN, cens=True, sm_count=132)
     assert 32 * p.warps_per_state == lanes
