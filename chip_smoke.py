@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only tree_predict,gh_ei,masked_argmax
     python3 chip_smoke.py --only batched
+    python3 chip_smoke.py --only service
 
 With ``--only`` it builds, runs the named kernels' checks and times of
 phases ops and analysis (or, for ``batched``, the batched step's launches
-of phase kernel and phase batched), and prints no result line (a
+of phase kernel and phase batched; for ``service``, phase batched's
+tf-cnn runs (d) and then phase service), and prints no result line (a
 measurement run).
 Without it, phases one line each with its times, then two JSON lines:
 
@@ -68,7 +70,20 @@ Without it, phases one line each with its times, then two JSON lines:
    slots (a refill), against ``run_many``, with 3 launches a step and the
    host syncs inside the step bodies counted; steps/s and mean
    ``select_seconds`` of both;
-8. analysis: the determinism gate's kernel, masked_argmax, against its
+8. service: the streaming service (``repro_torch.service.StreamingTuner``
+   on the card): (a) the golden runs of phase 6 streamed in three bursts
+   with a pump between them (2 seats, a queue of 2, 4 steps a segment,
+   traced), on 1 shard, on 2 shards (both on the one card) and with one
+   run preempted and resumed (``high_water=0``), each against the golden
+   outcomes with its trace validated (``validate_trace``,
+   ``validate_lifecycle``) and select_step launched; (b) the tf-cnn runs
+   of phase 7 (d) streamed on 2 seats, 16 steps a segment, traced (runs 0
+   and 1, a pump, then run 2, then a drain), byte-equal to phase 7's
+   ``run_many`` outcomes with 3 launches a step, with segments, steps/s,
+   selections/s, each span's summed seconds, host reads per segment,
+   syncs inside the step bodies, lane occupancy, latency p50/p99 and peak
+   memory.  Every ticket must resolve with an Outcome;
+9. analysis: the determinism gate's kernel, masked_argmax, against its
    plain version (both variants; random scores, near-ties, exact ties,
    NaN, -0.0/+0.0, infinities and all-invalid rows at M = 16, 384, 4096
    and 1 << 20: the index exactly) with its launch plan (grid, threads,
@@ -79,7 +94,7 @@ Without it, phases one line each with its times, then two JSON lines:
    read after; its findings (fixtures and registered programs) held equal
    to the CPU's; and ``python -m repro_torch.analysis --all --device cuda``
    as a command;
-9. model: zamba2-7b served at full width and depth (81 layers, d_model
+10. model: zamba2-7b served at full width and depth (81 layers, d_model
    3584, 6.75 B float32 parameters drawn on the card from a seeded
    generator) through ``repro_torch.launch.serve.generate``: B = 4 prompts
    of 1000 tokens from ``make_batch(seed=0)``, 32 tokens each, with the
@@ -1544,7 +1559,7 @@ def _batched_tf_runs(device, tf_job, n_runs=BATCHED_TF_RUNS,
           seq_steps_per_s=f"{seq_steps / seq_wall:.3f}",
           seq_mean_select_s=f"{st_.mean(o.select_seconds for o in seq):.4f}",
           nex=[o.nex for o in bat], pinned_equal_run_many=True)
-    return launches
+    return launches, seq
 
 
 def phase_batched(device, tf_job):
@@ -1557,13 +1572,176 @@ def phase_batched(device, tf_job):
     _batched_golden(device)
     _batched_queues(device)
     step = _batched_tf_step(device, tf_job)
-    launches = _batched_tf_runs(device, tf_job)
+    launches, tf_outs = _batched_tf_runs(device, tf_job)
     _line("batched", phase_s=f"{time.perf_counter() - t0:.1f}")
-    return step, launches
+    return step, launches, tf_outs
 
 
 # --------------------------------------------------------------------------- #
-# Phase 9: the Zamba2 serving path (ssm_scan, flash and decode attention)
+# Phase 8: the streaming service (StreamingTuner over the segment engines)
+# --------------------------------------------------------------------------- #
+# (b)'s pacing: 2 seats, 16 steps a segment.
+SERVICE_TF_SLOTS, SERVICE_TF_QUOTA = 2, 16
+
+
+def _service_tickets_done(tickets, what):
+    """Every ticket resolved with an Outcome: one that resolved with an
+    exception, or was cancelled, fails the phase."""
+    bad = [f"ticket {t.id}: {t.state}" for t in tickets
+           if t.state != "done"]
+    if bad:
+        raise AssertionError(f"{what}: {bad}")
+    return [t.result() for t in tickets]
+
+
+def _service_trace_ok(svc, what):
+    from repro_torch.obs import validate_lifecycle, validate_trace
+    events = svc.flight_record()
+    issues = (validate_trace(events)
+              + validate_lifecycle(events, require_terminal=True))
+    if issues:
+        raise AssertionError(f"{what}: trace issues {issues[:3]}")
+    return events
+
+
+def _service_golden(device):
+    """(a) The golden synthetic runs streamed in three bursts, on 1 shard,
+    on 2 shards (both on the one card) and with a run preempted and
+    resumed (high_water=0, the first burst at a low priority)."""
+    from repro_torch.core import RunRequest, Settings
+    from repro_torch.core.optimizer import _per_run_seeds
+    from repro_torch.jobs.synthetic import synthetic_job
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+    from repro_torch.obs.forensics import outcome_to_dict
+    from repro_torch.service import ServiceConfig, StreamingTuner
+
+    golden = json.loads(GOLDEN.read_text())
+    job = synthetic_job(golden["job_seed"])
+    reqs = [RunRequest(job, seed=sd, budget_b=golden["budget_b"])
+            for sd in _per_run_seeds(0, golden["n_runs"])]
+    bursts = [[0, 1], [2], [3]]
+    variants = (("1 shard", dict(num_shards=1), 0),
+                ("2 shards", dict(num_shards=2), 0),
+                ("preempt", dict(num_shards=1, high_water=0), 5))
+    for case in golden["cases"]:
+        want = json.dumps(case["outcomes"], sort_keys=True)
+        for name, kw, first_priority in variants:
+            cfg = ServiceConfig(lane_slots=2, queue_capacity=2, step_quota=4,
+                                trace=True, **kw)
+            svc = StreamingTuner(job, Settings(**case["settings"]), cfg,
+                                 device=device)
+            select_step_cuda.launches = 0
+            tickets = {}
+            for k, burst in enumerate(bursts):
+                for r in burst:
+                    tickets[r] = svc.submit(
+                        reqs[r], priority=first_priority if k == 0 else 0)
+                if k < len(bursts) - 1:
+                    svc.pump()
+            svc.drain()
+            launches = select_step_cuda.launches
+            outs = _service_tickets_done(
+                [tickets[r] for r in range(len(reqs))],
+                f"service golden {name}")
+            got = json.dumps([outcome_to_dict(o) for o in outs],
+                             sort_keys=True)
+            m = svc.metrics()
+            _service_trace_ok(svc, f"service golden {name}")
+            devices = sorted({str(e.device) for e in svc._engines.shards})
+            if got != want or launches == 0 or (
+                    first_priority and (m.preempted < 1 or m.resumed < 1)):
+                raise AssertionError(
+                    f"service golden {case['settings']} {name}: "
+                    f"{launches} launches, {m.preempted} preempted, "
+                    f"{m.resumed} resumed, outcomes "
+                    f"{'equal' if got == want else 'differ'}")
+            _line("service", part="golden", variant=name,
+                  settings=json.dumps(case["settings"],
+                                      separators=(",", ":")),
+                  runs=len(outs), shards=cfg.num_shards,
+                  devices=",".join(devices), segments=m.segments,
+                  steps=m.steps, preempted=m.preempted, resumed=m.resumed,
+                  launches=launches, trace_valid=True, equal=True)
+
+
+def _service_tf_runs(device, tf_job, seq_outs):
+    """(b) tf-cnn at the paper's defaults: the runs of phase batched (d)
+    streamed on 2 seats, 16 steps a segment, traced; the pinned fields
+    byte-equal to ``run_many``'s, 3 launches a step."""
+    import torch
+    from repro_torch.core import RunRequest, Settings
+    from repro_torch.core.optimizer import _per_run_seeds
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+    from repro_torch.obs import PHASES
+    from repro_torch.obs.forensics import diff_outcomes
+    from repro_torch.service import ServiceConfig, StreamingTuner
+
+    n_runs = len(seq_outs)
+    reqs = [RunRequest(tf_job, seed=sd)
+            for sd in _per_run_seeds(0, n_runs)]
+    cfg = ServiceConfig(lane_slots=SERVICE_TF_SLOTS,
+                        queue_capacity=SERVICE_TF_SLOTS,
+                        step_quota=SERVICE_TF_QUOTA, trace=True)
+    svc = StreamingTuner(tf_job, Settings(), cfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    select_step_cuda.launches = 0
+    with _StepCounter() as count:
+        t0 = time.perf_counter()
+        tickets = [svc.submit(q) for q in reqs[:2]]
+        svc.pump()
+        tickets.append(svc.submit(reqs[2]))
+        svc.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = select_step_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    outs = _service_tickets_done(tickets, "service tf-cnn")
+    if _pinned_json(outs) != _pinned_json(seq_outs):
+        raise AssertionError("streamed tf-cnn runs differ from run_many: "
+                             + "; ".join(diff_outcomes(seq_outs, outs)[:3]))
+    if launches != 3 * count.steps or count.steps == 0:
+        raise AssertionError(f"service tf-cnn: {launches} launches for "
+                             f"{count.steps} steps (want 3 a step)")
+    events = _service_trace_ok(svc, "service tf-cnn")
+    m = svc.metrics()
+    spans = {p: sum(e.data["dur_s"] for e in events
+                    if e.kind == "span" and e.data["phase"] == p)
+             for p in PHASES}
+    reads = sum(e.host_reads for e in svc._engines.shards)
+    _line("service", part="tf_runs", job=tf_job.name, runs=n_runs,
+          slots=cfg.lane_slots, step_quota=cfg.step_quota,
+          segments=m.segments, steps=count.steps, launches=launches,
+          wall_s=f"{wall:.1f}", steps_per_s=f"{count.steps / wall:.3f}",
+          selections_per_s=f"{count.steps * cfg.lane_slots / wall:.3f}",
+          span_s=json.dumps({p: round(v, 4) for p, v in spans.items()},
+                            separators=(",", ":")),
+          host_reads=reads,
+          host_reads_per_segment=f"{reads / max(m.segments, 1):.1f}",
+          syncs_in_step_bodies=count.syncs,
+          lane_occupancy=f"{m.lane_occupancy:.4f}",
+          latency_p50_s=f"{m.latency_p50_s:.2f}",
+          latency_p99_s=f"{m.latency_p99_s:.2f}",
+          peak_memory_gib=f"{peak / 2 ** 30:.2f}",
+          nex=[o.nex for o in outs], trace_valid=True,
+          pinned_equal_run_many=True)
+    return launches
+
+
+def phase_service(device, tf_job, tf_outs):
+    """The streaming service on the card: (a) the golden runs streamed in
+    bursts through 1 shard, 2 shards and a preemption; (b) the tf-cnn
+    runs of phase batched (d) streamed against their ``run_many``
+    outcomes.  Returns (b)'s select_step launches."""
+    t0 = time.perf_counter()
+    _service_golden(device)
+    launches = _service_tf_runs(device, tf_job, tf_outs)
+    _line("service", phase_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# Phase 10: the Zamba2 serving path (ssm_scan, flash and decode attention)
 # --------------------------------------------------------------------------- #
 ZAMBA = dict(arch="zamba2-7b", batch=4, prompt=1000, gen=32)
 # Serving runs in phase model: the first with the launch counts, then
@@ -2016,7 +2194,7 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
 
 
 # --------------------------------------------------------------------------- #
-# Phase 8: the determinism gate and its kernel, masked_argmax
+# Phase 9: the determinism gate and its kernel, masked_argmax
 # --------------------------------------------------------------------------- #
 ARGMAX_WIDTHS = (16, 384, 4096, 1 << 20)
 ARGMAX_KINDS = ("random", "near_tie", "exact_tie", "nan", "signed_zero",
@@ -2270,10 +2448,10 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--only", default=None,
         help="comma-separated kernels of phase ops (tree_predict, gh_ei, "
-             "flash_attention, decode_attention, ssm_scan), masked_argmax "
-             "and the phase batched: build, run only their checks and "
-             "times, and print no result line (a measurement run, not the "
-             "smoke)")
+             "flash_attention, decode_attention, ssm_scan), masked_argmax, "
+             "the phase batched, and service (phase batched's tf-cnn runs, "
+             "then phase service): build, run only their checks and times, "
+             "and print no result line (a measurement run, not the smoke)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2314,10 +2492,13 @@ def main(argv=None) -> int:
     if args.only is not None:
         only = tuple(args.only.split(","))
         ops_only = tuple(k for k in only
-                         if k not in ("masked_argmax", "batched"))
+                         if k not in ("masked_argmax", "batched", "service"))
         if "batched" in only:
             phase_kernel(device, tf_job, only_batched=True)
             phase_batched(device, tf_job)
+        if "service" in only:
+            _, tf_outs = _batched_tf_runs(device, tf_job)
+            phase_service(device, tf_job, tf_outs)
         if ops_only:
             phase_ops(device, tf_job, only=ops_only)
         if "masked_argmax" in only:
@@ -2329,7 +2510,8 @@ def main(argv=None) -> int:
     op_rows, op_launches = phase_ops(device, tf_job)
     launches = phase_main(device, tf_job)
     phase_golden(device)
-    phase_batched(device, tf_job)
+    _, _, tf_outs = phase_batched(device, tf_job)
+    service_launches = phase_service(device, tf_job, tf_outs)
     analysis_rows, argmax_launches = phase_analysis(device)
     model_rows, model_launches, _serving = phase_model(device)
     # Each kernel's launches come from the path that runs it: tree_predict
@@ -2345,7 +2527,9 @@ def main(argv=None) -> int:
         "name": "select_step", "route": "cuda",
         "source": "src/repro_torch/csrc/select_step.cu",
         "replaces": "src/repro/kernels/select_step/kernel.py:255",
-        "launches": launches, "max_abs_err": max_err, "ms": row["ms"],
+        "launches": launches,
+        "launches_by_path": {"main": launches, "service": service_launches},
+        "max_abs_err": max_err, "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": {"S": row["S"], "M": row["M"]},

@@ -14,7 +14,8 @@ PRNG, masked padded reductions, no float64 leaks or host round trips):
 ``registry`` lists the audited port programs, ``fixtures`` the
 deliberately broken programs that self-test each rule (one of them
 launches the masked-argmax kernel), and ``python -m repro_torch.analysis``
-runs the gate.
+runs the gate.  :func:`signature` renders a program's canonical text (the
+ordered aten operations it runs), which the forensics artifacts carry.
 """
 
 from repro_torch.analysis.registry import (ProgramSpec, audit_all,
@@ -25,11 +26,12 @@ from repro_torch.analysis.rules import (ForbiddenPrimitivesRule,
                                         NoF64NoCallbackRule,
                                         QuantizedArgmaxRule,
                                         SizeInvariantPRNGRule, default_rules)
-from repro_torch.analysis.trace_audit import Finding, Labels, Op, audit
+from repro_torch.analysis.trace_audit import (Finding, Labels, Op, audit,
+                                              signature)
 
 __all__ = [
     "Finding", "Labels", "Op", "audit", "QuantizedArgmaxRule",
     "SizeInvariantPRNGRule", "MaskedReduceRule", "NoF64NoCallbackRule",
     "ForbiddenPrimitivesRule", "default_rules", "ProgramSpec",
-    "registered_programs", "audit_program", "audit_all",
+    "registered_programs", "audit_program", "audit_all", "signature",
 ]

@@ -16,13 +16,15 @@ port program that has a reference counterpart, on a given device:
   (``optimizer._read_step``); the audited program is the device side of a
   step: ``_lockstep_body``, and ``_segment_start`` (with the evict flag)
   then ``_segment_body``;
+* the sharded service's per-shard segment step: the bucketed segment
+  step on inputs placed on a shard's device
+  (``service.placement.shard_devices``);
 * each kernel op, through its plain version (``force="ref"``) and through
   its dispatch (``force="auto"``: the kernel on the card).
 
-The sharded segment joins with the service (ROADMAP A9).  Geometries are
-the reference's smallest ones, chosen so the padded
-width ``m = 32`` is unique among the dimension sizes the programs run
-(R3 identifies the M axis by its size).  Inputs are zeros, as the
+Geometries are the reference's smallest ones, chosen so the padded width
+``m = 32`` is unique among the dimension sizes the programs run (R3
+identifies the M axis by its size).  Inputs are zeros, as the
 reference's example arguments; a trace runs the program for real, so the
 kernel programs take small seeded inputs instead.
 """
@@ -216,6 +218,19 @@ def _segment(bucketed: bool):
     return build
 
 
+def _segment_sharded():
+    """The bucketed segment step on inputs placed on shard 1's device
+    (``cpu``, or ``cuda:{1 % n}``): the program a shard of the sharded
+    service runs (``placement.shard_segment`` hands ``_episode_segment``
+    its inputs unchanged), so placement adds no operation."""
+    bucketed = _segment(bucketed=True)
+
+    def build(device):
+        from repro_torch.service import placement
+        return bucketed(placement.shard_devices(2, device)[-1])
+    return build
+
+
 def _kernel_args(name: str, device):
     g = torch.Generator().manual_seed(0)
     rnd = lambda *shape: torch.randn(shape, generator=g).to(device)
@@ -309,6 +324,10 @@ def registered_programs() -> list[ProgramSpec]:
     specs.append(ProgramSpec(
         "episode/segment/bucketed", _segment(bucketed=True),
         "lane-compacting segment step, geometry-bucketed mixed queue"))
+    specs.append(ProgramSpec(
+        "episode/segment/sharded", _segment_sharded(),
+        "per-shard segment step: the bucketed segment on inputs placed "
+        "on a shard's device (placement, not a program change)"))
     for k in _KERNELS:
         specs.append(ProgramSpec(f"kernel/{k}/ref", _kernel(k, "ref"),
                                  f"{k} plain PyTorch version"))

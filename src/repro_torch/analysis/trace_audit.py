@@ -59,8 +59,14 @@ How the port's program differs from a jaxpr, and what the walker does
 * Host round trips are ``aten._local_scalar_dense`` (``.item()``,
   ``float(t)``, indexing with a 0-d tensor) and device-to-host copies.
 
-Not ported: ``program_signature`` (a jaxpr's canonical text) has no
-counterpart in an eager trace.
+The reference's ``program_signature`` (a jaxpr's canonical text) becomes
+:func:`signature`: the ordered aten operations a run of the program
+records, each with its overload, its operands' dtypes and shapes and its
+non-tensor arguments, tensors renamed ``v0, v1, ...`` in the order they
+first appear (program inputs first).  Devices are left out: placement is
+not part of the program; so is ``lift_fresh``, a host constant entering
+the program, which a module-level cache (the Gauss-Hermite nodes) makes
+only on the first run.
 """
 
 from __future__ import annotations
@@ -76,8 +82,9 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch.core import acquisition, prng
 
-__all__ = ["Finding", "Labels", "Op", "Rule", "audit", "REDUCTIONS",
-           "is_binary_max", "DIRTY", "MASK", "ANTIMASK", "CLEAN"]
+__all__ = ["Finding", "Labels", "Op", "Rule", "audit", "signature",
+           "REDUCTIONS", "is_binary_max", "DIRTY", "MASK", "ANTIMASK",
+           "CLEAN"]
 
 
 # --------------------------------------------------------------------------- #
@@ -487,3 +494,84 @@ def audit(fn, example_args: tuple, rules: list[Rule], *,
                 for f in tracer.findings]
     return tracer.findings
 
+
+
+# --------------------------------------------------------------------------- #
+# Canonical program signatures
+# --------------------------------------------------------------------------- #
+# Keyword arguments that say where or how a result is allocated, not what
+# it computes.
+_PLACEMENT_KWARGS = frozenset({"device", "pin_memory", "non_blocking"})
+
+
+class _Signer(TorchDispatchMode):
+    """Records each aten operation a program runs as one canonical line."""
+
+    def __init__(self, leaves):
+        super().__init__()
+        self.names: dict[int, str] = {}
+        self.keep: list = []                    # ids stay unique
+        self.lines: list[str] = []
+        for leaf in leaves:
+            if isinstance(leaf, torch.Tensor):
+                self._tensor(leaf)
+
+    def _tensor(self, t: torch.Tensor) -> str:
+        name = self.names.get(id(t))
+        if name is None:
+            name = self.names[id(t)] = f"v{len(self.names)}"
+            self.keep.append(t)
+        dt = str(t.dtype).removeprefix("torch.")
+        return f"{name}:{dt}{list(t.shape)}"
+
+    def _arg(self, a) -> str:
+        if isinstance(a, torch.Tensor):
+            return self._tensor(a)
+        if isinstance(a, (list, tuple)):
+            return "[" + ",".join(self._arg(x) for x in a) + "]"
+        if isinstance(a, torch.dtype):
+            return str(a).removeprefix("torch.")
+        if isinstance(a, torch.device):
+            return "device"
+        return repr(a)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func._overloadpacket.__name__ == "lift_fresh":
+            # A host constant entering the program (a jaxpr's constvar): it
+            # shows only where it is first made, not where a cached copy is
+            # reused, so the line would differ between runs.
+            return out
+        ins = [self._arg(a) for a in args] + [
+            f"{k}={self._arg(v)}" for k, v in sorted(kwargs.items())
+            if k not in _PLACEMENT_KWARGS]
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        self.lines.append(
+            f"{func._overloadpacket.__name__}.{func._overloadname}("
+            + ",".join(ins) + ")->(" + ",".join(self._arg(o) for o in outs)
+            + ")")
+        return out
+
+    def kernel_launched(self, op: str, outputs, plain) -> None:
+        """A hand-written kernel's launch (``kernels.dispatch.
+        declare_kernel``): one line naming the op and its outputs."""
+        got, _ = tree_flatten(outputs)
+        self.lines.append(f"kernel.{op}()->(" + ",".join(
+            self._arg(g) for g in got if isinstance(g, torch.Tensor)) + ")")
+
+
+def signature(fn, *example_args, **example_kwargs) -> str:
+    """Run ``fn`` on the example arguments and return its canonical program
+    signature: one line for the inputs, then one per aten operation in the
+    order they ran (see the module docstring).  Two runs of one program on
+    the same inputs give the same text; two programs that run different
+    operations, or the same operations on other dtypes or shapes, differ.
+    """
+    leaves, _ = tree_flatten((tuple(example_args), dict(example_kwargs)))
+    signer = _Signer(leaves)
+    head = "in(" + ",".join(signer._arg(leaf) for leaf in leaves
+                            if isinstance(leaf, torch.Tensor)) + ")"
+    with signer:
+        fn(*example_args, **example_kwargs)
+    return "\n".join([head] + signer.lines)

@@ -299,17 +299,19 @@ def _alg1_step(st, idx, c, t_run, u_at, valid, tau, s: lookahead.Settings,
 
 
 # The program geometries the episode functions have run, keyed as the
-# reference's jit cache keys its episode programs (shapes, Settings and the
-# queue's kind): eager PyTorch compiles nothing, so this set is the port's
-# compile-count observable.
+# reference's jit cache keys its episode programs (shapes, Settings, the
+# queue's kind and the device the program runs on, as a jitted program
+# placed on another device is another executable): eager PyTorch compiles
+# nothing, so this set is the port's compile-count observable.
 _EPISODE_PROGRAMS: set = set()
 
 
 def episode_cache_size() -> int:
     """Distinct episode program geometries run so far (lockstep and
-    segment): draining a queue that mixes J native geometries padded into
-    one bucket adds exactly one, where J per-geometry sub-queues would add
-    J.  The selections inside an episode are not counted by
+    segment), one per (geometry, device): draining a queue that mixes J
+    native geometries padded into one bucket adds exactly one, where J
+    per-geometry sub-queues would add J; a sharded service adds one per
+    shard device.  The selections inside an episode are not counted by
     ``lookahead.selector_cache_size``, as the reference inlines them."""
     return len(_EPISODE_PROGRAMS)
 
@@ -354,7 +356,7 @@ def _batched_episode(keys, y, mask, beta, explored, n_exp, cens, cexpl,
     """
     r_dim, m_dim = y.shape
     _EPISODE_PROGRAMS.add(("lockstep", r_dim, m_dim, tuple(points.shape),
-                           tuple(thresholds.shape), s))
+                           tuple(thresholds.shape), s, y.device))
     st = {"key": keys, "y": y, "mask": mask, "beta": beta,
           "explored": explored, "n_exp": n_exp,
           "active": torch.ones((r_dim,), dtype=torch.bool, device=y.device)}
@@ -697,7 +699,7 @@ def _episode_segment(carry, queue, qtail, evict, low_water, step_quota,
             else "bucketed" if points.dim() == 3 else "mixed")
     _EPISODE_PROGRAMS.add(("segment", kind, l_dim, c_dim, m_dim,
                            tuple(points.shape), tuple(thresholds.shape),
-                           tuple(cost.shape), s))
+                           tuple(cost.shape), s, carry["y"].device))
     st = _segment_start(carry, evict, n_out, s)
     space_of = _job_rows(job_ids, points, left, thresholds, u, t_max, valid)
     steps = 0

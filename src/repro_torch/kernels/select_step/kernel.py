@@ -4,7 +4,8 @@ Checks device, dtype, shape and contiguity, allocates the outputs with
 ``torch.empty``, launches on ``torch.cuda.current_stream()`` with the
 geometry of :func:`plan` and raises if the launch reports an error.
 ``select_step_cuda.launches`` counts the launches it makes (and nothing
-else), so a run can show that its selections went through the kernel.
+else; under a lock, so launches from several threads all count), so a run
+can show that its selections went through the kernel.
 :func:`prepare` and :func:`launch` split a call, so that a benchmark can
 time launches alone.
 """
@@ -12,6 +13,7 @@ time launches alone.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -274,8 +276,12 @@ def select_step_cuda(feat, thr, leaf, y, obs, beta, bf, points, u, t_max,
     args, out, _keep = prepare(feat, thr, leaf, y, obs, beta, bf, points, u,
                                t_max, floor, xi, cens, valid, **kw)
     launch(args)
-    select_step_cuda.launches += 1
+    # The sharded service launches from one host thread per shard: the
+    # count's read-modify-write takes a lock.
+    with _LAUNCHES_LOCK:
+        select_step_cuda.launches += 1
     return out
 
 
 select_step_cuda.launches = 0
+_LAUNCHES_LOCK = threading.Lock()

@@ -189,11 +189,22 @@ def test_kernel_launch_is_followed_through_its_declared_plain_version(
     "episode/lockstep/timeout",
     "episode/segment",
     "episode/segment/bucketed",
+    "episode/segment/sharded",
 ])
 def test_registered_program_audits_clean(name):
     spec = {s.name: s for s in registered_programs()}[name]
     findings = audit_program(spec, "cpu")
     assert findings == [], [str(f) for f in findings]
+
+
+def test_registry_holds_36_programs_with_the_sharded_segment():
+    """The reference's episode programs all have their counterpart, the
+    sharded service's per-shard segment among them: 36 programs."""
+    names = [s.name for s in registered_programs()]
+    assert len(names) == 36
+    assert {"episode/lockstep", "episode/lockstep/timeout",
+            "episode/segment", "episode/segment/bucketed",
+            "episode/segment/sharded"} <= set(names)
 
 
 def test_registry_names_unique_and_cover_every_kernel():
