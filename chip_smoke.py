@@ -5,12 +5,13 @@
     python3 chip_smoke.py --only tree_predict,gh_ei,masked_argmax
     python3 chip_smoke.py --only batched
     python3 chip_smoke.py --only service
+    python3 chip_smoke.py --only extensions
 
 With ``--only`` it builds, runs the named kernels' checks and times of
 phases ops and analysis (or, for ``batched``, the batched step's launches
 of phase kernel and phase batched; for ``service``, phase batched's
-tf-cnn runs (d) and then phase service), and prints no result line (a
-measurement run).
+tf-cnn runs (d) and then phase service; for ``extensions``, phase
+extensions), and prints no result line (a measurement run).
 Without it, phases one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
@@ -108,6 +109,20 @@ Without it, phases one line each with its times, then two JSON lines:
    (``kernel_ms``: each launched alone between CUDA events).
    Last, zamba2-smoke through the kernels, teacher-forced, against the
    JAX package's logits (``golden_zamba.json``, atol 2e-4);
+11. extensions (run after phase 6): (a) every case of
+   ``golden_extensions.json`` on the card,
+   equal to the JAX package's outputs on the CPU: ``cartesian_gh``,
+   ``default_setup_cost``, ``optimize_multi_constraint`` and
+   ``optimize_with_setup_costs`` on the inputs of
+   ``tests/test_core_extensions.py`` and at tf-cnn size, ``optimize_live``
+   on those of ``tests/test_autotune_and_launch.py``, and the mock
+   launch-config tuner (``launch.autotune.tune``, mixtral-8x22b, budget
+   1000, la 2), each with its probes, wall seconds and selections; (b)
+   that tuner call with the exact refit, which selects through
+   ``select_step`` (the tuner's frozen refit has no fused kernel, in the
+   reference or the port), 3 launches a selection counted around it,
+   against the same call through the plain path (``fused_selector="ref"``),
+   with steps, steps/s and mean seconds a selection of both;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result
@@ -1245,30 +1260,46 @@ def _pinned_json(outcomes):
 
 def _counting_selector_runs(job, settings, n_runs, budget_b, device):
     """``run_many`` with its selector wrapped to count selection steps."""
-    from repro_torch.core import lookahead, run_many
-    steps = 0
-    real = lookahead.make_selector
-
-    def make_counting(*a, **k):
-        sel = real(*a, **k)
-
-        def run(*x, **y):
-            nonlocal steps
-            steps += 1
-            return sel(*x, **y)
-        return run
-
-    lookahead.make_selector = make_counting
-    try:
+    import torch
+    from repro_torch.core import run_many
+    with _SelectionTimer() as timer:
         t0 = time.perf_counter()
         outs = run_many(job, settings, n_runs=n_runs, budget_b=budget_b,
                         device=device)
-        import torch
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        lookahead.make_selector = real
-    return outs, steps, wall
+    return outs, len(timer.seconds), wall
+
+
+class _SelectionTimer:
+    """Wraps ``lookahead.make_selector`` so that every selector built inside
+    the block counts and times its selections (a synchronise after each)."""
+
+    def __init__(self):
+        self.seconds = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import lookahead
+        self._real = real = lookahead.make_selector
+
+        def make_timed(*a, **k):
+            sel = real(*a, **k)
+
+            def run(*x, **y):
+                t0 = time.perf_counter()
+                out = sel(*x, **y)
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        lookahead.make_selector = make_timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import lookahead
+        lookahead.make_selector = self._real
 
 
 def phase_main(device, tf_job, n_runs=1, budget_b=3.0):
@@ -2368,6 +2399,190 @@ def phase_analysis(device):
     return rows, launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 11: the §4.4 extensions, optimize_live and the launch-config tuner
+# --------------------------------------------------------------------------- #
+GOLDEN_EXT = (ROOT / "src" / "repro_torch" / "testdata"
+              / "golden_extensions.json")
+# (b)'s selections: the tuner's golden call (mixtral-8x22b's 180-point launch
+# space, budget 1000, SLO 1.5, la 2) with the exact refit.  The tuner's own
+# selector refits frozen, which has no fused kernel in the reference or the
+# port (``lookahead._fused_mode``): it selects through the plain program.
+LIVE_TUNE = dict(arch="mixtral-8x22b", shape="train_4k", mesh_kind="single",
+                 budget=1000.0, slo=1.5, mock=True, la=2)
+
+
+def extension_api(device):
+    """The port's names that :func:`run_extension_case` calls, with the
+    device its entry points run on.  (The tests build the JAX package's
+    twin of this namespace.)"""
+    from repro_torch.core import Settings, extensions
+    from repro_torch.core.optimizer import optimize_live
+    from repro_torch.core.space import DiscreteSpace
+    from repro_torch.jobs.synthetic import tensorflow_jobs
+    from repro_torch.jobs.tables import JobTable
+    from repro_torch.launch import autotune
+    return types.SimpleNamespace(
+        Settings=Settings, ext=extensions, optimize_live=optimize_live,
+        DiscreteSpace=DiscreteSpace, JobTable=JobTable,
+        tensorflow_jobs=tensorflow_jobs, autotune=autotune,
+        kw={"device": device})
+
+
+def extension_job(spec, api):
+    import numpy as np
+    if "tensorflow_jobs" in spec:
+        return api.tensorflow_jobs(spec["tensorflow_jobs"])[spec["index"]]
+    space = api.DiscreteSpace.from_grid(spec["grid"])
+    return api.JobTable(spec["name"], space, np.asarray(spec["runtime"]),
+                        np.asarray(spec["unit_price"]), spec["t_max"])
+
+
+def run_extension_case(case, api):
+    """One case of ``golden_extensions.json`` through ``api``'s names;
+    returns its output as JSON values (floats exact, so ``==`` is bitwise).
+
+    ``case["call"]`` names the function; the case holds its inputs: a job
+    (its grid and table columns, or a ``tensorflow_jobs`` index), metric
+    arrays, ``Settings`` fields and keywords.  ``optimize_live`` runs
+    against the evaluator of ``tests/test_autotune_and_launch.py``: a
+    probe's runtime from the case's table, its cost runtime times
+    ``price``."""
+    import numpy as np
+    call, kw = case["call"], dict(case.get("kwargs", {}))
+    settings = (None if case.get("settings") is None
+                else api.Settings(**case["settings"]))
+    if call == "cartesian_gh":
+        vals, wts = api.ext.cartesian_gh(**kw)
+        out = {"vals": vals.tolist(), "wts": wts.tolist()}
+    elif call == "default_setup_cost":
+        space = extension_job(case["job"], api).space
+        setup = api.ext.default_setup_cost(space, **kw)
+        m = space.n_points
+        out = {"first": [setup(None, j) for j in range(m)],
+               "pairs": [[setup(i, j) for j in range(m)] for i in range(m)]}
+    elif call == "optimize_multi_constraint":
+        cjob = api.ext.ConstrainedJob(
+            extension_job(case["job"], api),
+            {k: np.asarray(v) for k, v in case["metrics"].items()},
+            dict(case["thresholds"]))
+        out = api.ext.optimize_multi_constraint(cjob, settings=settings,
+                                                **kw, **api.kw)
+    elif call == "optimize_with_setup_costs":
+        job = extension_job(case["job"], api)
+        setup = api.ext.default_setup_cost(job.space, **case["setup"])
+        out = api.ext.optimize_with_setup_costs(job, settings,
+                                                setup_cost=setup, **kw,
+                                                **api.kw)
+    elif call == "optimize_live":
+        space = api.DiscreteSpace.from_grid(case["grid"])
+        runtimes, price = np.asarray(case["runtimes"]), case["price"]
+
+        def evaluate(i):
+            t = float(runtimes[i])
+            return t, t * price
+
+        out = api.optimize_live(evaluate, space,
+                                np.full(space.n_points, price),
+                                case["t_max"], settings, **kw, **api.kw)
+    elif call == "tune":
+        out = api.autotune.tune(*case["args"], out_dir=None,
+                                log=lambda *a: None, **kw, **api.kw)
+    else:
+        raise ValueError(f"unknown extension call {call!r}")
+    return json.loads(json.dumps(out, default=str))
+
+
+def _tune_with(device, **change):
+    """``autotune.tune`` on :data:`LIVE_TUNE` with its selector's Settings
+    changed by ``change``; returns (output, selection seconds, wall s)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import autotune
+
+    real = autotune.tune_settings
+    autotune.tune_settings = lambda la: dataclasses.replace(real(la),
+                                                            **change)
+    try:
+        args = dict(LIVE_TUNE)
+        with _SelectionTimer() as timer:
+            t0 = time.perf_counter()
+            out = autotune.tune(args.pop("arch"), args.pop("shape"),
+                                args.pop("mesh_kind"), out_dir=None,
+                                log=None, device=device, **args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        autotune.tune_settings = real
+    return out, timer.seconds, wall
+
+
+def phase_extensions(device):
+    """(a) Every case of ``golden_extensions.json`` on the card, equal to
+    the JAX package's outputs; (b) the tuner's golden call with the exact
+    refit through ``select_step`` (3 launches a selection), against the
+    plain path.  Returns (b)'s launches."""
+    import statistics as st_
+
+    import torch
+    from repro_torch.kernels.select_step.kernel import select_step_cuda
+    from repro_torch.launch import autotune
+
+    t0 = time.perf_counter()
+    golden = json.loads(GOLDEN_EXT.read_text())
+    api = extension_api(device)
+    bad = []
+    for case in golden["cases"]:
+        c0 = time.perf_counter()
+        with _SelectionTimer() as timer:
+            got = run_extension_case(case, api)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - c0
+        equal = got == case["out"]
+        if not equal:
+            bad.append(case["name"])
+        probes = got.get("explored") if isinstance(got, dict) else None
+        sel = timer.seconds
+        _line("extensions", case=case["name"], call=case["call"],
+              equal_golden=equal, wall_s=f"{wall:.3f}",
+              probes=None if probes is None else len(probes),
+              censored=len(got.get("censored", ())),
+              steps=len(sel), steps_per_s=(f"{len(sel) / wall:.3f}"
+                                           if sel else None),
+              mean_select_s=f"{st_.mean(sel):.4f}" if sel else None)
+    if bad:
+        raise AssertionError(f"extension cases differ from the JAX "
+                             f"package's golden outputs: {bad}")
+
+    # (b) The kernel against its plain version through optimize_live.
+    select_step_cuda.launches = 0
+    kern, k_sel, k_wall = _tune_with(device, refit="exact")
+    launches = select_step_cuda.launches
+    if launches != 3 * len(k_sel) or not k_sel:
+        raise AssertionError(f"optimize_live: {launches} select_step "
+                             f"launches for {len(k_sel)} selections (want "
+                             "3 each)")
+    plain, p_sel, p_wall = _tune_with(device, refit="exact",
+                                      fused_selector="ref")
+    if json.dumps(kern, sort_keys=True, default=str) != json.dumps(
+            plain, sort_keys=True, default=str):
+        raise AssertionError("optimize_live: the kernel path and the plain "
+                             "path disagree")
+    _line("extensions", part="live_kernel", refit="exact", la=2,
+          points=autotune.build_space(True).n_points,
+          probes=len(kern["explored"]),
+          censored=len(kern["censored"]), steps=len(k_sel),
+          launches=launches, wall_s=f"{k_wall:.3f}",
+          steps_per_s=f"{len(k_sel) / k_wall:.3f}",
+          mean_select_s=f"{st_.mean(k_sel):.4f}",
+          plain_steps=len(p_sel), plain_wall_s=f"{p_wall:.3f}",
+          plain_mean_select_s=f"{st_.mean(p_sel):.4f}",
+          recommended=kern["recommended"], equal_plain=True)
+    _line("extensions", phase_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def _all_counters():
     from repro_torch.kernels.select_step.kernel import select_step_cuda
     return dict(_op_counters(), select_step=select_step_cuda)
@@ -2449,9 +2664,10 @@ def main(argv=None) -> int:
         "--only", default=None,
         help="comma-separated kernels of phase ops (tree_predict, gh_ei, "
              "flash_attention, decode_attention, ssm_scan), masked_argmax, "
-             "the phase batched, and service (phase batched's tf-cnn runs, "
-             "then phase service): build, run only their checks and times, "
-             "and print no result line (a measurement run, not the smoke)")
+             "the phase batched, service (phase batched's tf-cnn runs, "
+             "then phase service) and extensions: build, run only their "
+             "checks and times, and print no result line (a measurement "
+             "run, not the smoke)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2492,7 +2708,8 @@ def main(argv=None) -> int:
     if args.only is not None:
         only = tuple(args.only.split(","))
         ops_only = tuple(k for k in only
-                         if k not in ("masked_argmax", "batched", "service"))
+                         if k not in ("masked_argmax", "batched", "service",
+                                      "extensions"))
         if "batched" in only:
             phase_kernel(device, tf_job, only_batched=True)
             phase_batched(device, tf_job)
@@ -2505,11 +2722,16 @@ def main(argv=None) -> int:
             _, failures = argmax_checks(device)
             if failures:
                 raise AssertionError(f"masked_argmax: {failures[:3]}")
+        if "extensions" in only:
+            phase_extensions(device)
         return 0
     rows, max_err = phase_kernel(device, tf_job)
     op_rows, op_launches = phase_ops(device, tf_job)
     launches = phase_main(device, tf_job)
     phase_golden(device)
+    # The live path's host-bound loops run before the long phases: run
+    # after phase model, they took up to 2.4x as long.
+    live_launches = phase_extensions(device)
     _, _, tf_outs = phase_batched(device, tf_job)
     service_launches = phase_service(device, tf_job, tf_outs)
     analysis_rows, argmax_launches = phase_analysis(device)
@@ -2528,7 +2750,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/select_step.cu",
         "replaces": "src/repro/kernels/select_step/kernel.py:255",
         "launches": launches,
-        "launches_by_path": {"main": launches, "service": service_launches},
+        "launches_by_path": {"main": launches, "service": service_launches,
+                             "live": live_launches},
         "max_abs_err": max_err, "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,

@@ -55,4 +55,28 @@ ALLOWLIST = [
     Allow(file="core/trees.py", rule="unpinned-reduction",
           match="dead = w.sum(dim=2, keepdim=True)",
           why="a tree's total bootstrap weight: " + _COUNTS),
+    # The §4.4 extension loops (the reference's four entries).  They are
+    # sequential host loops with no batched or device-side twin whose
+    # selections or bills must match theirs; they reproduce the reference's
+    # own host arithmetic, which these four lines are.
+    Allow(file="core/extensions.py", rule="raw-argmax",
+          match="int(score.argmax())",
+          why="the extension loops' host numpy argmax, first index on ties, "
+              "as the reference takes it: the loops have no batched or "
+              "device twin whose picks must match, and one host argmax has "
+              "no second compilation whose rounding could differ"),
+    Allow(file="core/extensions.py", rule="float-accum",
+          match="beta -= billed",
+          why="the multi-constraint loop's budget in Python floats, as the "
+              "reference keeps it (its float64 job costs and bills): no "
+              "device-side float32 replay of this loop exists to match"),
+    Allow(file="core/extensions.py", rule="float-accum",
+          match="beta -= cost[i] + fee",
+          why="the setup-cost loop's budget in Python floats, as the "
+              "reference keeps it: the same reasoning as the "
+              "multi-constraint loop's budget"),
+    Allow(file="core/extensions.py", rule="float-accum",
+          match="setup_spent += fee",
+          why="a reported total of the setup fees, never compared with "
+              "device arithmetic nor fed back into a decision"),
 ]

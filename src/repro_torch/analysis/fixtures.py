@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.analysis.rules import default_rules
 from repro_torch.analysis.trace_audit import Finding, audit
+from repro_torch.device import resolve_device
 
 __all__ = ["Fixture", "fixtures", "audit_fixture", "check_fixtures"]
 
@@ -128,8 +129,10 @@ def fixtures() -> list[Fixture]:
     ]
 
 
-def audit_fixture(fx: Fixture, device="cpu") -> list[Finding]:
-    fn, args, rules = fx.build(device)
+def audit_fixture(fx: Fixture, device="cuda") -> list[Finding]:
+    """Audit one fixture on ``device``: the card unless the caller asks for
+    the CPU (``cuda`` without a card raises)."""
+    fn, args, rules = fx.build(resolve_device(device))
     return audit(fn, args, rules, program=fx.name)
 
 
@@ -138,8 +141,10 @@ _CLEAN_TWINS = {"fixture/clean": lambda d: _mini_selector(None, d),
                 "fixture/clean_kernel": lambda d: _kernel_argmax(False, d)}
 
 
-def run_fixtures(device="cpu") -> dict[str, list[Finding]]:
-    """Every fixture's and clean twin's findings, by name."""
+def run_fixtures(device="cuda") -> dict[str, list[Finding]]:
+    """Every fixture's and clean twin's findings, by name, on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     out = {}
     for tag, build in _CLEAN_TWINS.items():
         fn, args, rules = build(device)
@@ -149,9 +154,9 @@ def run_fixtures(device="cpu") -> dict[str, list[Finding]]:
     return out
 
 
-def check_fixtures(device="cpu") -> list[str]:
-    """Run the mutation self-test on ``device``; returns error strings
-    (empty = healthy).
+def check_fixtures(device="cuda") -> list[str]:
+    """Run the mutation self-test on ``device`` (the card unless the caller
+    asks for the CPU); returns error strings (empty = healthy).
 
     Checks, per fixture: exactly one finding, of exactly the expected rule.
     Plus: the unbroken twins audit clean."""

@@ -40,6 +40,7 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch.analysis.rules import default_rules
 from repro_torch.analysis.trace_audit import Finding, audit
+from repro_torch.device import resolve_device
 
 __all__ = ["ProgramSpec", "registered_programs", "audit_program",
            "audit_all"]
@@ -337,14 +338,18 @@ def registered_programs() -> list[ProgramSpec]:
     return specs
 
 
-def audit_program(spec: ProgramSpec, device="cpu") -> list[Finding]:
-    fn, example_args, rules = spec.build(torch.device(device))
+def audit_program(spec: ProgramSpec, device="cuda") -> list[Finding]:
+    """Audit one registered program on ``device``: the card unless the
+    caller asks for the CPU (``cuda`` without a card raises)."""
+    fn, example_args, rules = spec.build(resolve_device(device))
     return audit(fn, example_args, rules, program=spec.name)
 
 
-def audit_all(device="cpu", progress: Callable[[str], None] | None = None
+def audit_all(device="cuda", progress: Callable[[str], None] | None = None
               ) -> list[Finding]:
-    """Audit every registered program on ``device``."""
+    """Audit every registered program on ``device``: the card unless the
+    caller asks for the CPU (``cuda`` without a card raises)."""
+    device = resolve_device(device)
     findings: list[Finding] = []
     for spec in registered_programs():
         if progress is not None:

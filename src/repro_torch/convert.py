@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.space import DiscreteSpace, GeometryBucket, PaddedSpace
 from repro_torch.core.trees import ForestParams
+from repro_torch.device import resolve_device
 from repro_torch.jobs.tables import JobTable
 from repro_torch.models.params import fan_in, spec_leaves, unflatten
 
@@ -20,9 +21,12 @@ __all__ = ["forest_from_numpy", "space_from_numpy", "job_from_numpy",
            "numpy_params", "tree_from_numpy"]
 
 
-def forest_from_numpy(feat, thr, leaf, device="cpu") -> ForestParams:
+def forest_from_numpy(feat, thr, leaf, device="cuda") -> ForestParams:
     """A ``ForestParams`` (feat [..., B, D, W] int32, thr [..., B, D, W] and
-    leaf [..., B, L] float32) from arrays, e.g. a JAX ``ForestParams``."""
+    leaf [..., B, L] float32) from arrays, e.g. a JAX ``ForestParams``, on
+    ``device``: the card unless the caller asks for the CPU (``cuda``
+    without a card raises)."""
+    device = resolve_device(device)
     return ForestParams(
         torch.as_tensor(np.asarray(feat, np.int32), device=device),
         torch.as_tensor(np.asarray(thr, np.float32), device=device),
@@ -75,11 +79,14 @@ def numpy_params(specs, seed: int) -> dict:
     return unflatten(leaves)
 
 
-def tree_from_numpy(tree, device="cpu"):
+def tree_from_numpy(tree, device="cuda"):
     """A dict of tensors from the same dict of numpy arrays, one array to
     one tensor, nothing transposed: the reference's Zamba2 parameters or
     serving caches (``jax.tree.map(np.asarray, tree)``) become the port's,
-    whose keys, layouts and dtypes are the reference's."""
+    whose keys, layouts and dtypes are the reference's.  The tensors go to
+    ``device``: the card unless the caller asks for the CPU (``cuda``
+    without a card raises)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     return torch.as_tensor(np.array(tree), device=device)

@@ -11,7 +11,9 @@ The port of ``repro.core``'s sequential decision loop.  Layout:
 * ``optimizer``   — the optimization loop + BO / LA0 / RND: the sequential
                     oracle (``run_many``, ``run_queue``) and the batched,
                     lane-compacting harness (``run_many_batched``,
-                    ``run_queue_batched``) with the same Outcomes
+                    ``run_queue_batched``) with the same Outcomes;
+                    ``optimize_live`` against a live evaluator
+* ``extensions``  — §4.4: multiple constraints, setup costs
 * ``metrics``     — CNO / NEX aggregation
 """
 

@@ -204,6 +204,101 @@ def optimize(job: JobTable, settings: lookahead.Settings, *,
         spend_trajectory=tuple(spend_traj))
 
 
+def optimize_live(evaluator, space, unit_price, t_max: float,
+                  settings: lookahead.Settings, *, budget: float,
+                  n_bootstrap: int | None = None, seed: int = 0,
+                  log=None, device="cuda") -> dict:
+    """Sequential optimization against a LIVE evaluator (no precomputed table).
+
+    This is the framework-integration path (``launch/autotune.py``): each
+    "run" of a configuration actually profiles it and charges its cost
+    against the budget.  Selections run on ``device`` (``"cuda"`` by
+    default; raises without a card), through ``make_selector`` as in
+    :func:`optimize`.
+
+    With ``settings.timeout`` every probe runs under a cap τ — the
+    constraint cap ``timeout_tmax_mult·t_max`` for bootstrap probes, the
+    selector's predictive cap afterwards.  A probe whose runtime exceeds τ
+    is billed pro rata (``c·τ/t`` — the cost accrued up to the abort) and
+    recorded as a censored lower bound; censored probes are never
+    recommendable (their runtime was not observed to meet the SLO).
+
+    The reference's precisions are kept, since they decide the cut and the
+    bill: τ is a Python float (unlike :func:`optimize`'s float32), the pro
+    rata bill is float64, the remaining budget float32.
+
+    Args:
+      evaluator: f(index) -> (runtime_seconds, cost_dollars) for config i.
+      unit_price: [M] $/h while a config runs (for the EI_c constraint).
+      t_max: runtime SLO in the same units as evaluator's runtime.
+      budget: total profiling budget in cost units.
+    Returns dict with explored, costs, runtimes, recommended, trajectory.
+    """
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    m = space.n_points
+    n_boot = n_bootstrap or max(int(np.ceil(0.03 * m)), space.n_dims)
+    y = np.zeros(m, np.float32)
+    runtimes = np.zeros(m, np.float32)
+    mask = np.zeros(m, bool)
+    cens = np.zeros(m, bool)
+    explored: list[int] = []
+    beta = np.float32(budget)
+    tau_boot = (float(np.float32(t_max)
+                      * np.float32(settings.timeout_tmax_mult))
+                if settings.timeout else float("inf"))
+
+    def run_config(i: int, tau: float = float("inf")):
+        nonlocal beta
+        t, c = evaluator(int(i))
+        cut = settings.timeout and t > tau
+        if cut:
+            c = float(c) * tau / max(float(t), 1e-12)
+        y[i] = c
+        runtimes[i] = t
+        mask[i] = True
+        cens[i] = bool(cut)
+        explored.append(int(i))
+        beta = np.float32(beta - np.float32(c))
+        if log:
+            log(f"[tune] cfg {i}: runtime {t:.4f}s cost {c:.4f} "
+                f"beta {beta:.3f}" + (f" CENSORED at tau {tau:.3f}s" if cut
+                                      else ""))
+
+    for i in latin_hypercube_indices(space, n_boot, rng):
+        run_config(i, tau_boot)
+
+    sel = lookahead.make_selector(space, unit_price, t_max, settings,
+                                  device=device)
+    key = prng.PRNGKey(seed)
+    while beta > 0:
+        key, sub = prng.split(key)
+        if settings.timeout:
+            idx, valid, diag = sel(sub, y, mask, max(beta, 0.0), cens)
+            tau = float(diag["timeout"].item())
+        else:
+            idx, valid, _ = sel(sub, y, mask, max(beta, 0.0))
+            tau = float("inf")
+        if not bool(valid):
+            break
+        run_config(int(idx), tau)
+
+    arr = np.array(explored)
+    feas = (runtimes[arr] <= t_max) & ~cens[arr]
+    if feas.any():
+        sub_arr = arr[feas]
+    elif (~cens[arr]).any():
+        sub_arr = arr[~cens[arr]]
+    else:
+        sub_arr = arr
+    rec = int(sub_arr[y[sub_arr].argmin()])
+    return {"recommended": rec, "explored": explored,
+            "costs": y[arr].tolist(), "runtimes": runtimes[arr].tolist(),
+            "censored": [int(i) for i in arr[cens[arr]]],
+            "spent": float(budget - beta), "budget": budget,
+            "best_runtime": float(runtimes[rec]), "best_cost": float(y[rec])}
+
+
 def _per_run_seeds(seed: int, n_runs: int) -> list[int]:
     return [seed * 100003 + r for r in range(n_runs)]
 

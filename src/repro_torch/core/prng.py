@@ -49,7 +49,12 @@ def threefry2x32(k1, k2, x1, x2):
 
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` with 64-bit mode off: the seed is cut
-    to its low 32 bits, and the high key word is 0."""
+    to its low 32 bits, and the high key word is 0.
+
+    The key stays on the CPU by default, unlike the port's entry points:
+    it is a two-word host value that runs no work, and the loops keep it
+    and its splits on the host (``optimizer.optimize``); the selectors
+    copy each step's key to their device."""
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
                         device=device)
 

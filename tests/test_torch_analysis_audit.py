@@ -224,3 +224,27 @@ def test_gate_command_line_passes_on_the_cpu():
              "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     assert "determinism gate: OK" in out.stdout
+
+
+# --------------------------------------------------------------------------- #
+# The gate's library entry points run on the card unless asked for the CPU
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("entry", ["audit_program", "audit_all",
+                                   "audit_fixture", "run_fixtures",
+                                   "check_fixtures"])
+def test_gate_entry_points_default_to_the_card_and_raise_without_one(
+        monkeypatch, entry):
+    """Called with no device on a host without a card, each raises the
+    ``resolve_device`` error instead of auditing the CPU's plain programs
+    (which would report OK without tracing one kernel launch)."""
+    from repro_torch.analysis import fixtures as fx_mod
+    from repro_torch.analysis import registry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = registered_programs()[0]
+    calls = {"audit_program": lambda: registry.audit_program(spec),
+             "audit_all": registry.audit_all,
+             "audit_fixture": lambda: fx_mod.audit_fixture(fixtures()[0]),
+             "run_fixtures": fx_mod.run_fixtures,
+             "check_fixtures": fx_mod.check_fixtures}
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        calls[entry]()

@@ -89,3 +89,21 @@ def test_fused_selector_setting_is_validated():
         with pytest.raises(ValueError):
             make_selector(job.space, job.unit_price, job.t_max, bad,
                           device="cpu")
+
+
+def test_converters_default_to_the_card_and_the_key_stays_on_the_host(
+        no_card):
+    """``convert``'s tensor builders place work on the card unless asked
+    for the CPU; ``prng.PRNGKey`` is a host value the loops keep there."""
+    from repro_torch import convert
+    arrays = (np.zeros((1, 2, 1), np.int32), np.zeros((1, 2, 1), np.float32),
+              np.zeros((1, 4), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.forest_from_numpy(*arrays)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.tree_from_numpy({"w": np.ones(3, np.float32)})
+    assert convert.forest_from_numpy(*arrays, device="cpu").leaf.shape == (
+        1, 4)
+    assert convert.tree_from_numpy({"w": np.ones(3)}, "cpu")["w"].device \
+        == torch.device("cpu")
+    assert prng.PRNGKey(7).device == torch.device("cpu")

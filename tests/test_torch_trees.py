@@ -106,7 +106,8 @@ def test_predict_and_mu_sigma_on_a_carried_jax_forest(job_name):
     fit = _jax_fit(sp, 10, 4)
     for seed, y, mask in _draws(job, 8, 11):
         pj, aj = fit(jax.random.PRNGKey(seed), y, mask)
-        forest = convert.forest_from_numpy(*(np.asarray(a) for a in pj))
+        forest = convert.forest_from_numpy(*(np.asarray(a) for a in pj),
+                                          device="cpu")
         xq = np.random.default_rng(seed % 1000).uniform(
             -0.1, 1.1, (50, sp.n_dims)).astype(np.float32)
         xq = np.concatenate([xq, sp.points])

@@ -57,7 +57,7 @@ PROMPT = 37                      # 2 chunks of 16 and a padded tail of 5
 def models():
     jm = jax_build(JCFG)
     jp = jm.init(jax.random.PRNGKey(0), jnp.float32)
-    tp = convert.tree_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = convert.tree_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     # Compiled once: the eager reference retraces its layer scans per call.
     jm = dataclasses.replace(
         jm, prefill=jax.jit(jm.prefill, static_argnums=(2, 3)),
@@ -203,7 +203,8 @@ def test_prefill_and_decode_match_jax(models):
     # The reference's own caches, converted, give its next logits.
     tok = toks[:, PROMPT:PROMPT + 1]
     cl, _ = tm.decode(tp, convert.tree_from_numpy(
-        jax.tree.map(np.asarray, jc)), torch.as_tensor(tok), PROMPT, FLAGS)
+        jax.tree.map(np.asarray, jc), "cpu"), torch.as_tensor(tok), PROMPT,
+        FLAGS)
     _close(cl, jm.decode(jp, jc, jnp.asarray(tok), jnp.int32(PROMPT),
                          JFLAGS)[0])
     for step in range(3):
