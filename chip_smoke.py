@@ -6,12 +6,14 @@
     python3 chip_smoke.py --only batched
     python3 chip_smoke.py --only service
     python3 chip_smoke.py --only extensions
+    python3 chip_smoke.py --only zoo
 
 With ``--only`` it builds, runs the named kernels' checks and times of
 phases ops and analysis (or, for ``batched``, the batched step's launches
 of phase kernel and phase batched; for ``service``, phase batched's
 tf-cnn runs (d) and then phase service; for ``extensions``, phase
-extensions), and prints no result line (a measurement run).
+extensions; for ``zoo``, the zoo's serving runs and golden logits of
+phase model), and prints no result line (a measurement run).
 Without it, phases one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
@@ -36,10 +38,12 @@ Without it, phases one line each with its times, then two JSON lines:
    global, causal and non-causal, bf16 and f32) and bf16 edge cases of
    the tensor-core kernel (S and T off the tiles, D 112 and 100, MQA),
    decode_attention on gemma2-9b caches at B = 8 (global T = 8192 and
-   local ring T = 4096, each full and filling; splits whose slots are all
-   dead, every slot dead, a ragged last tile) and at zamba2-7b's shape,
-   and ssm_scan at xlstm-125m's mLSTM widths (N = 192, P = 193, float32,
-   held against the plain version in float64 as in phase model); scale
+   local ring T = 4096, each full and filling, and the global one full
+   with Gemma2's softcap; splits whose slots are all dead, every slot dead, a
+   ragged last tile) and at zamba2-7b's shape, and ssm_scan at
+   xlstm-125m's mLSTM widths (N = 384, P = 385) and at N = 192, P = 193
+   (float32, held against the plain version in float64 as in phase
+   model); scale
    cases, not path shapes, of tree_predict and gh_ei at M = 1 << 20
    (tf-cnn's F = 5, B = 10, D = 4; K = 3), timed over copies of their
    inputs that move three times the L2 cache.  Each case is driven
@@ -49,8 +53,9 @@ Without it, phases one line each with its times, then two JSON lines:
    with its launch plan: grid, threads, tile, shared bytes, registers)
    beside its plain version, its bound and, where one PyTorch call
    computes the same function, that call (``library_ms``: SDPA, or a
-   compiled ``flex_attention`` for the softcapped and windowed prefills,
-   with its max abs error against the plain version, and ``vs_library``,
+   compiled ``flex_attention`` with static shapes for the softcapped and
+   windowed prefills and the softcapped decodes, with its max abs error
+   against the plain version, and ``vs_library``,
    the kernel's time over the library call's);
 5. main path: ``run_many`` on tf-cnn at the paper's defaults, timeout off
    and on, through the kernel (launch counts read around the run), then
@@ -68,7 +73,7 @@ Without it, phases one line each with its times, then two JSON lines:
    (``_auto_lane_chunk``: 11 seats) in one batched step, 3 launches (S =
    11, 12,672, 38,016), each seat bitwise equal to the sequential
    selector, with its seconds and peak memory; (d) tf-cnn, 3 runs on 2
-   slots (a refill), against ``run_many``, with 3 launches a step and the
+   slots (a refill) at budget b = 2, against ``run_many``, with 3 launches a step and the
    host syncs inside the step bodies counted; steps/s and mean
    ``select_seconds`` of both;
 8. service: the streaming service (``repro_torch.service.StreamingTuner``
@@ -107,8 +112,17 @@ Without it, phases one line each with its times, then two JSON lines:
    from that run and timed beside it, its bound and (attention) SDPA;
    ssm_scan also with each of its three kernels' device times
    (``kernel_ms``: each launched alone between CUDA events).
-   Last, zamba2-smoke through the kernels, teacher-forced, against the
-   JAX package's logits (``golden_zamba.json``, atol 2e-4);
+   Then zamba2-smoke through the kernels, teacher-forced, against the
+   JAX package's logits (``golden_zamba.json``, atol 2e-4).  Then the
+   zoo, each arch served the same way with its weights drawn on the card:
+   xlstm-125m (B = 4, prompt 1000, gen 32; ssm_scan 10 a prefill and none
+   a decode step; mLSTM block 0's scan held in float32 and bf16; the two
+   sLSTM blocks' share of a prefill) and gemma2-9b (B = 2, prompt 4608,
+   past its 4096 window, gen 32; flash_attention 42 a prefill,
+   decode_attention 42 x 31; layers 0 (local) and 1 (global) held in the
+   prefill and in the last decode step, softcapped), each profiled; last,
+   the five smoke configs of ``golden_zoo.json`` against the JAX
+   package's logits (atol 2e-4);
 11. extensions (run after phase 6): (a) every case of
    ``golden_extensions.json`` on the card,
    equal to the JAX package's outputs on the CPU: ``cartesian_gh``,
@@ -158,6 +172,7 @@ import types  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "src" / "repro_torch" / "testdata" / "golden_outcomes.json"
 GOLDEN_ZAMBA = ROOT / "src" / "repro_torch" / "testdata" / "golden_zamba.json"
+GOLDEN_ZOO = ROOT / "src" / "repro_torch" / "testdata" / "golden_zoo.json"
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor fp32 op/s
 # and dense bf16 tensor-core op/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -628,24 +643,26 @@ PREFILL_S = 8192          # twice the window: the local layers' window binds
 # at these statistics; the atol covers that and outputs near 0.
 BF16_TOL = (1e-3, 1e-2)
 DECODE_B = 8
-# (label, T, window, pos): the global layers' cache and the local layers'
-# ring, full (the ring has rolled over at pos 8191) and filling (the slots
-# past pos are empty: pos - slot < 0, where floor modulo matters).
-DECODE_CACHES = (("global cache T 8192, pos 8191", 8192, None, 8191),
-                 ("local ring T 4096, window 4096, pos 8191 (rollover)",
-                  4096, 4096, 8191),
-                 ("global cache T 8192, pos 5000 (filling)", 8192, None,
-                  5000),
-                 ("local ring T 4096, window 4096, pos 3000 (filling)",
-                  4096, 4096, 3000),
-                 # Edge cases of the split over T: splits whose slots are
-                 # all dead, and a ragged last tile.
-                 ("global cache T 8192, pos 10 (all-dead splits)", 8192,
-                  None, 10),
-                 ("cache T 1000 (ragged last tile), pos 1500 (rollover)",
-                  1000, None, 1500),
-                 ("global cache T 8192, pos -1 (every slot dead)", 8192,
-                  None, -1))
+# (label, T, window, pos, softcap): the global layers' cache and the local
+# layers' ring, full (the ring has rolled over at pos 8191) and filling (the
+# slots past pos are empty: pos - slot < 0, where floor modulo matters).
+DECODE_CACHES = (
+    ("global cache T 8192, pos 8191", 8192, None, 8191, None),
+    ("local ring T 4096, window 4096, pos 8191 (rollover)", 4096, 4096, 8191,
+     None),
+    ("global cache T 8192, pos 5000 (filling)", 8192, None, 5000, None),
+    ("local ring T 4096, window 4096, pos 3000 (filling)", 4096, 4096, 3000,
+     None),
+    # Edge cases of the split over T: splits whose slots are all dead, and
+    # a ragged last tile.
+    ("global cache T 8192, pos 10 (all-dead splits)", 8192, None, 10, None),
+    ("cache T 1000 (ragged last tile), pos 1500 (rollover)", 1000, None,
+     1500, None),
+    ("global cache T 8192, pos -1 (every slot dead)", 8192, None, -1, None),
+    # gemma2-9b decodes with its attention softcap (50): the global cache,
+    # full (phase model holds the local ring, softcapped, at gemma2-9b's
+    # serving shape).
+    ("global cache T 8192, pos 8191, softcap 50", 8192, None, 8191, 50.0))
 # flash_attention edge cases of the tensor-core kernel, bf16: (label, H,
 # KH, S, T, D, causal, window, softcap).  S and T off the 64-row tiles,
 # head dims zero-padded in shared memory (112: zamba2-7b's; 100: not a
@@ -830,7 +847,8 @@ def ops_cases(device, tf_job, only=None):
     if want("flash_attention", "decode_attention"):
         cases += _attention_cases(device)
     if want("ssm_scan"):
-        cases.append(_xlstm_scan_case(device))
+        cases += [_xlstm_scan_case(device),
+                  _xlstm_scan_case(device, SCAN_N192)]
     return [c for c in cases if want(c.kernel)]
 
 
@@ -1003,7 +1021,7 @@ def _attention_cases(device):
     n_sm = da._sm_count(device.index or 0)
     for dtype, tol, peak in ((torch.bfloat16, BF16_TOL, BF16_OPS_PER_S),
                              (torch.float32, (2e-5, 2e-5), FP32_OPS_PER_S)):
-        for label, t, window, pos in DECODE_CACHES:
+        for label, t, window, pos, softcap in DECODE_CACHES:
             gk = torch.Generator(device=device).manual_seed(t)
             q = torch.randn((b, h, d), generator=gk, device=device).to(dtype)
             k = torch.randn((b, kh, t, d), generator=gk, device=device
@@ -1013,14 +1031,16 @@ def _attention_cases(device):
             pos_t = torch.tensor(pos, dtype=torch.int32, device=device)
             live_mask = _live_mask(t, pos, window)
             live = int(live_mask.sum())
-            kw = dict(scale=GEMMA2["scale"], window=window)
+            kw = dict(scale=GEMMA2["scale"], window=window, softcap=softcap)
             # SDPA over the live slots (a masked slot gets weight 0, as the
-            # kernel's -0.7·f32max does); no mask when every slot is live.
+            # kernel's -0.7·f32max does; no mask when every slot is live),
+            # or flex_attention where there is a softcap.
             mask = (None if live == t else
                     torch.from_numpy(live_mask).to(device)[None, None, None])
-            lib = (lambda q=q, k=k, v=v, m=mask: sdpa(
-                q[:, :, None], k, v, attn_mask=m, scale=GEMMA2["scale"],
-                enable_gqa=True)[:, :, 0])
+            lib = (_flex_decode(q, k, v, pos, **kw) if softcap is not None
+                   else (lambda q=q, k=k, v=v, m=mask: sdpa(
+                       q[:, :, None], k, v, attn_mask=m,
+                       scale=GEMMA2["scale"], enable_gqa=True)[:, :, 0]))
             # q and o, and the K/V rows of the live slots only; with no
             # live slot the answer is the mean of V, which SDPA does not
             # compute.
@@ -1072,22 +1092,26 @@ def _attention_cases(device):
     return cases
 
 
-# xlstm-125m's mLSTM calls the scan with N = head_dim = 192 and P = 193 (v
-# and the normalizer): src/repro/models/xlstm.py:94, configs/xlstm_125m.py.
-XLSTM_SCAN = dict(b=4, l=1000, h=4, n=192, p=193, chunk=256)
+# xlstm-125m's mLSTM calls the scan with N = hd = 2·d_model / n_heads =
+# 384 and P = hd + 1 = 385 (v and the normalizer):
+# src/repro/models/xlstm.py:34-37 and :94, configs/xlstm_125m.py.  N = 192,
+# P = 193, timed in earlier runs, stays beside it so that its time stays
+# comparable.
+XLSTM_SCAN = dict(b=4, l=1000, h=4, n=384, p=385, chunk=256)
+SCAN_N192 = dict(XLSTM_SCAN, n=192, p=193)
 
 
-def _xlstm_scan_case(device):
-    """ssm_scan at xlstm-125m's mLSTM widths, float32, held against the
-    plain version evaluated in float64 at the model path's gate."""
+def _xlstm_scan_case(device, x=XLSTM_SCAN):
+    """ssm_scan at xlstm-125m's mLSTM widths (or ``x``'s), float32, held
+    against the plain version evaluated in float64 at the model path's
+    gate."""
     import torch
     from repro_torch.kernels.ssm_scan import kernel as sk
     from repro_torch.kernels.ssm_scan.ops import linear_scan
 
-    x = XLSTM_SCAN
     b, l, h, n, p, chunk = (x[k] for k in ("b", "l", "h", "n", "p",
                                            "chunk"))
-    g = torch.Generator(device=device).manual_seed(192)
+    g = torch.Generator(device=device).manual_seed(n)
     k = torch.randn((b, l, h, n), generator=g, device=device) * n ** -0.5
     q = torch.randn((b, l, h, n), generator=g, device=device) * n ** -0.5
     v = torch.randn((b, l, h, p), generator=g, device=device)
@@ -1098,8 +1122,9 @@ def _xlstm_scan_case(device):
     exact = linear_scan(*(t.double() for t in args), **kw, force="ref")
     nbytes, ops, peak, work = _ssm_bound(args, kw, chunk, "float32")
     return OpCase(
-        "ssm_scan", f"xlstm-125m mLSTM widths: B {b}, L {l}, H {h}, N {n}, "
-        f"P {p}, chunk {chunk}, float32",
+        "ssm_scan", (f"xlstm-125m mLSTM widths: " if x is XLSTM_SCAN
+                     else "") + f"B {b}, L {l}, H {h}, N {n}, P {p}, "
+        f"chunk {chunk}, float32",
         run=lambda: linear_scan(*args, **kw),
         plain=lambda: linear_scan(*args, **kw, force="ref"),
         prep=lambda: sk.prepare(*args, **kw), launch=sk.launch,
@@ -1132,30 +1157,72 @@ def _live_mask(t, pos, window):
     return ok
 
 
-def _flex_attention(q, k, v, *, causal, window, softcap, scale):
-    """One compiled ``flex_attention`` call of the same function: the
-    softcap as its score_mod (after the scale, before the mask), the causal
-    and window mask as its block mask.  The library yardstick only."""
+# The library yardstick's flex_attention, compiled once with static shapes.
+# With dynamo's default automatic dynamic shapes, a call at a new size
+# (gemma2-9b serving's B 2, S 4608 after phase ops' B 1, S 8192) compiled a
+# graph over symbolic sizes that ran 5x slower on an H100 (466.9 against
+# 94.9 ms at gemma2-9b's f32 prefill).  Each (shape, dtype, softcap) is a
+# graph of its own, six in a whole run; past dynamo's recompile limit (8)
+# the call would run eagerly, materialising every score, so a hit raises
+# instead.
+_FLEX = {}
+
+
+def _flex_call(q, k, v, softcap, mask_mod, scale):
+    """A call of the compiled flex_attention: the softcap as its score_mod
+    (after the scale, before the mask), ``mask_mod`` as its block mask."""
     import torch
     from torch.nn.attention import flex_attention as fx
 
-    def mask_mod(b, h, qi, ki):
-        ok = ki >= 0
-        if causal:
-            ok = ok & (ki <= qi)
-        if window is not None:
-            ok = ok & (ki > qi - window)
-        return ok
+    if "call" not in _FLEX:
+        torch._dynamo.config.fail_on_recompile_limit_hit = True
+        _FLEX["call"] = torch.compile(fx.flex_attention, dynamic=False)
+    flex = _FLEX["call"]
 
     def score_mod(sc, b, h, qi, ki):
         return softcap * torch.tanh(sc / softcap)
 
     block = fx.create_block_mask(mask_mod, None, None, q.shape[2],
                                  k.shape[2], device=q.device)
-    flex = torch.compile(fx.flex_attention)
     return lambda: flex(q, k, v, score_mod=None if softcap is None
                         else score_mod, block_mask=block, scale=scale,
                         enable_gqa=True)
+
+
+def _flex_attention(q, k, v, *, causal, window, softcap, scale):
+    """One compiled ``flex_attention`` call of the same function as the
+    prefill, the causal and window mask as its block mask (the window a
+    tensor the mask reads, so that a local and a global layer of one shape
+    share a graph).  The library yardstick only."""
+    import torch
+
+    win = torch.tensor(q.shape[2] + k.shape[2] if window is None else window,
+                       device=q.device)
+
+    def mask_mod(b, h, qi, ki):
+        ok = ki > qi - win
+        if causal:
+            ok = ok & (ki <= qi)
+        return ok
+
+    return _flex_call(q, k, v, softcap, mask_mod, scale)
+
+
+def _flex_decode(q, k, v, pos, *, window, softcap, scale):
+    """One compiled ``flex_attention`` call of the same function as the
+    decode: q [B, H, D] as one query row against the ring cache [B, KH, T,
+    D], ``_live_mask``'s slots as its block mask (a tensor the mask reads,
+    so that two masks of one shape share a graph).  Returns [B, H, D].  The
+    library yardstick only."""
+    import torch
+
+    live = torch.from_numpy(_live_mask(k.shape[2], pos, window)).to(q.device)
+
+    def mask_mod(b, h, qi, ki):
+        return live[ki]
+
+    call = _flex_call(q[:, :, None], k, v, softcap, mask_mod, scale)
+    return lambda: call()[:, :, 0]
 
 
 def _op_counters():
@@ -1374,9 +1441,10 @@ def phase_golden(device):
 # --------------------------------------------------------------------------- #
 # Phase 7: the batched harness (run_many_batched, run_queue_batched)
 # --------------------------------------------------------------------------- #
-# (d)'s tf-cnn runs: timeout off (~30 steps a run), 3 runs on 2 slots, so
-# that a slot refills.
-BATCHED_TF_RUNS, BATCHED_TF_SLOTS = 3, 2
+# (d)'s tf-cnn runs: timeout off, 3 runs on 2 slots, so that a slot
+# refills; at budget b = 2 (B = N·m̃·b: half the paper's exploration budget
+# of b = 3), cut to keep the script within its time limit.
+BATCHED_TF_RUNS, BATCHED_TF_SLOTS, BATCHED_TF_BUDGET = 3, 2, 2.0
 
 
 def _mixed_queues():
@@ -1567,7 +1635,7 @@ def _batched_tf_runs(device, tf_job, n_runs=BATCHED_TF_RUNS,
     with _StepCounter() as count:
         t0 = time.perf_counter()
         bat = run_many_batched(tf_job, s, n_runs=n_runs, lane_chunk=slots,
-                               device=device)
+                               budget_b=BATCHED_TF_BUDGET, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = select_step_cuda.launches
@@ -1575,13 +1643,13 @@ def _batched_tf_runs(device, tf_job, n_runs=BATCHED_TF_RUNS,
         raise AssertionError(f"batched tf-cnn: {launches} launches for "
                              f"{count.steps} steps of {slots} slots (want "
                              "3 a step: one a level for every slot)")
-    seq, seq_steps, seq_wall = _counting_selector_runs(tf_job, s, n_runs,
-                                                       3.0, device)
+    seq, seq_steps, seq_wall = _counting_selector_runs(
+        tf_job, s, n_runs, BATCHED_TF_BUDGET, device)
     if _pinned_json(bat) != _pinned_json(seq):
         raise AssertionError("batched tf-cnn runs differ from run_many: "
                              + "; ".join(diff_outcomes(seq, bat)[:3]))
     _line("batched", part="tf_runs", job=tf_job.name, runs=n_runs,
-          slots=slots, steps=count.steps, launches=launches,
+          slots=slots, budget_b=BATCHED_TF_BUDGET, steps=count.steps, launches=launches,
           syncs_in_step_bodies=count.syncs, wall_s=f"{wall:.1f}",
           steps_per_s=f"{count.steps / wall:.3f}",
           selections_per_s=f"{count.steps * slots / wall:.3f}",
@@ -1708,7 +1776,7 @@ def _service_tf_runs(device, tf_job, seq_outs):
     from repro_torch.service import ServiceConfig, StreamingTuner
 
     n_runs = len(seq_outs)
-    reqs = [RunRequest(tf_job, seed=sd)
+    reqs = [RunRequest(tf_job, seed=sd, budget_b=BATCHED_TF_BUDGET)
             for sd in _per_run_seeds(0, n_runs)]
     cfg = ServiceConfig(lane_slots=SERVICE_TF_SLOTS,
                         queue_capacity=SERVICE_TF_SLOTS,
@@ -1966,24 +2034,21 @@ class _Capture:
         return run
 
 
-def _zamba_golden(device):
-    """zamba2-smoke through the kernels, teacher-forced, against the JAX
-    package's logits (``golden_zamba.json``)."""
+def golden_logits(cfg, weights, tokens, prompt, steps, device):
+    """A smoke model's prefill logits and ``steps`` teacher-forced decode
+    logits [steps + 1, B, V] (float64, on the host), computed on
+    ``device`` from numpy weights: what the golden files hold, and what the
+    tests check on the CPU."""
     import numpy as np
     import torch
     from repro_torch import convert
-    from repro_torch.configs import get_smoke_config
     from repro_torch.models import RuntimeFlags, build_model
 
-    golden = json.loads(GOLDEN_ZAMBA.read_text())
-    cfg = get_smoke_config(golden["arch"])
     model = build_model(cfg)
     flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
                          compute_dtype="float32")
-    params = convert.tree_from_numpy(
-        convert.numpy_params(model.specs(), golden["param_seed"]), device)
-    toks = torch.as_tensor(np.asarray(golden["tokens"]), device=device)
-    prompt, steps = golden["prompt_len"], golden["steps"]
+    params = convert.tree_from_numpy(weights, device)
+    toks = torch.as_tensor(np.asarray(tokens), device=device)
     logits, caches = model.prefill(params, {"tokens": toks[:, :prompt]},
                                    flags, prompt + steps)
     out = [logits[:, 0]]
@@ -1992,71 +2057,76 @@ def _zamba_golden(device):
         logits, caches = model.decode(params, caches, toks[:, pos:pos + 1],
                                       pos, flags)
         out.append(logits[:, 0])
-    got = torch.stack(out).cpu().double()
-    want = torch.tensor(golden["logits"], dtype=torch.float64)
+    return torch.stack(out).cpu().double()
+
+
+def _golden_check(golden_file, arch, entry, meta, device):
+    """One arch's smoke config through the kernels, teacher-forced,
+    against the JAX package's tokens and logits in ``entry``, at atol 2e-4
+    (``meta``: the file's seed, prompt length and steps)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config(arch)
+    weights = convert.numpy_params(build_model(cfg).specs(),
+                                   meta["param_seed"])
+    got = golden_logits(cfg, weights, entry["tokens"], meta["prompt_len"],
+                        meta["steps"], device)
+    want = torch.tensor(entry["logits"], dtype=torch.float64)
     err = (got - want).abs().max().item()
-    _line("model", golden=GOLDEN_ZAMBA.name, config=cfg.name,
-          steps=steps + 1, max_abs_err=err, atol=2e-4)
+    _line("model", golden=golden_file.name, config=cfg.name,
+          steps=meta["steps"] + 1, max_abs_err=err, atol=2e-4)
     if not err <= 2e-4:
-        raise AssertionError(f"zamba2-smoke on the card differs from the JAX "
+        raise AssertionError(f"{cfg.name} on the card differs from the JAX "
                              f"package's logits by {err} (atol 2e-4)")
 
 
-def phase_model(device, cfg=None, batch=ZAMBA["batch"],
-                prompt=ZAMBA["prompt"], gen=ZAMBA["gen"]):
-    """Serve zamba2-7b at full width and depth through
-    ``repro_torch.launch.serve.generate`` with the launch counts at 0, then
-    hold each kernel against its plain version on the arguments captured
-    from that run, time it, and check the smoke model's golden logits."""
+def _zamba_golden(device):
+    """zamba2-smoke through the kernels, teacher-forced, against the JAX
+    package's logits (``golden_zamba.json``)."""
+    golden = json.loads(GOLDEN_ZAMBA.read_text())
+    entry = {k: golden[k] for k in ("tokens", "logits")}
+    _golden_check(GOLDEN_ZAMBA, golden["arch"], entry, golden, device)
+
+
+def _zoo_golden(device):
+    """Each smoke config of ``golden_zoo.json`` (xlstm-125m and the dense
+    archs) through the kernels, teacher-forced, against the JAX package's
+    logits."""
+    golden = json.loads(GOLDEN_ZOO.read_text())
+    for arch, entry in golden["archs"].items():
+        _golden_check(GOLDEN_ZOO, arch, entry, golden, device)
+
+
+def _model_ops():
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as sk_ops
+    return {"ssm_scan": sk_ops, "flash_attention": fa_ops,
+            "decode_attention": da_ops}
+
+
+def _serve(device, model, params, flags, tokens, prompt, gen, caps, want):
+    """Serve ``tokens`` through ``repro_torch.launch.serve.generate``:
+    once with every launch count at 0 and the model ops' kernels behind
+    ``caps`` (read after), then ``SERVE_RUNS - 1`` more times for the
+    spread of the two rates.  Fails unless the launches equal ``want``
+    and the tokens are in range.  Returns (launches, prefill seconds of
+    each run, decode tokens/s of each run, peak GB, medians of both)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_batch
-    from repro_torch.kernels.decode_attention import kernel as da
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.ssm_scan import kernel as sk
-    from repro_torch.kernels.ssm_scan import ops as sk_ops
-    from repro_torch.kernels.ssm_scan.ref import linear_scan_ref
     from repro_torch.launch.serve import generate
-    from repro_torch.models import RuntimeFlags, build_model
 
-    t0 = time.perf_counter()
-    cfg = cfg or get_config(ZAMBA["arch"])
-    model = build_model(cfg)
-    flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
-                         compute_dtype="float32")
-    torch.cuda.reset_peak_memory_stats(device)
-    params = model.init(torch.Generator(device=device).manual_seed(0),
-                        torch.float32, device)
-    n_params = model.n_params()
-    toks = make_batch(cfg, "serve", batch, prompt, seed=0, step=0)["tokens"]
-    tokens = torch.as_tensor(toks, device=device)
-    torch.cuda.synchronize(device)
-    _line("model", arch=cfg.name, params=n_params, layers=cfg.n_layers,
-          d_model=cfg.d_model, batch=batch, prompt=prompt, gen=gen,
-          init_s=f"{time.perf_counter() - t0:.1f}")
-
-    n_scan = cfg.n_layers
-    n_sites = cfg.n_layers // cfg.attn_every
-    caps = {"ssm_scan": _Capture(sk, "ssm_scan_cuda",
-                                 lambda i: i in (0, n_scan - 1)),
-            "flash_attention": _Capture(fa, "flash_attention_cuda",
-                                        lambda i: i == 0),
-            # The last decode call stands for decode.
-            "decode_attention": _Capture(
-                da, "decode_attention_cuda",
-                lambda i: i == n_sites * (gen - 1) - 1)}
-    mods = {"ssm_scan": sk_ops, "flash_attention": fa_ops,
-            "decode_attention": da_ops}
+    cfg = model.cfg
+    batch = tokens.shape[0]
+    mods = _model_ops()
     counters = _all_counters()
     for fn in counters.values():
         fn.launches = 0
-    for name, mod in mods.items():
-        mod._kernel = caps[name]
+    for name, cap in caps.items():
+        mods[name]._kernel = cap
     try:
         with _HostClock() as clock:
             out, tps, prefill_s = generate(model, params, flags,
@@ -2064,27 +2134,24 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
                                            prompt + gen)
         torch.cuda.synchronize(device)
     finally:
-        for name, mod in mods.items():
-            mod._kernel = caps[name].module
+        for name, cap in caps.items():
+            mods[name]._kernel = cap.module
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    want = {"ssm_scan": cfg.n_layers, "flash_attention": n_sites,
-            "decode_attention": n_sites * (gen - 1), "select_step": 0,
-            "tree_predict": 0, "gh_ei": 0}
     host = out.cpu()
-    _line("model", drive="repro_torch.launch.serve.generate",
+    _line("model", arch=cfg.name, drive="repro_torch.launch.serve.generate",
           prefill_s=f"{prefill_s:.4f}", decode_tokens_per_s=f"{tps:.1f}",
           peak_gb=f"{peak_gb:.2f}", **clock.fields(),
           launches=json.dumps(launches, separators=(",", ":")),
           sample=host[0, :10].tolist())
     if launches != want:
-        raise AssertionError(f"launches on the serving path {launches}, "
-                             f"expected {want}")
+        raise AssertionError(f"launches on the {cfg.name} serving path "
+                             f"{launches}, expected {want}")
     if tuple(host.shape) != (batch, gen) or not (
             (host >= 0) & (host < cfg.vocab)).all():
         raise AssertionError(f"generated tokens {tuple(host.shape)} out of "
                              f"range")
-    # The same requests again, for the spread of the two rates.
+    del out, host
     prefill_runs, tps_runs = [prefill_s], [tps]
     for run in range(1, SERVE_RUNS):
         with _HostClock() as clock:
@@ -2093,17 +2160,23 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
                                            prompt + gen)
         prefill_runs.append(prefill_r)
         tps_runs.append(tps_r)
-        _line("model", drive="repro_torch.launch.serve.generate", run=run,
+        _line("model", arch=cfg.name,
+              drive="repro_torch.launch.serve.generate", run=run,
               prefill_s=f"{prefill_r:.4f}",
               decode_tokens_per_s=f"{tps_r:.1f}", **clock.fields())
     prefill_med = float(np.median(prefill_runs))
     tps_med = float(np.median(tps_runs))
-    _line("model", runs=SERVE_RUNS, prefill_s_median=f"{prefill_med:.4f}",
+    _line("model", arch=cfg.name, runs=SERVE_RUNS,
+          prefill_s_median=f"{prefill_med:.4f}",
           decode_tokens_per_s_median=f"{tps_med:.1f}",
           decode_step_s_median=f"{batch / tps_med:.4f}")
+    return launches, prefill_runs, tps_runs, peak_gb, prefill_med, tps_med
 
-    rows, failures = [], []
 
+def _reporter(rows, failures, launches):
+    """``report(name, case, err, bad, ms, plain_ms, lib_ms, nbytes, ops,
+    peak, **extra)``: one row of a model kernel against its plain version,
+    with its bound, into ``rows`` (and its failures into ``failures``)."""
     def report(name, case, err, bad, ms, plain_ms, lib_ms, nbytes, ops,
                peak=FP32_OPS_PER_S, **extra):
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2117,13 +2190,20 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
         _line("model", **{k: _fmt(k, v) for k, v in row.items()},
               within_tol=not bad)
         failures.extend(f"{name} {case}: {b}" for b in bad)
+    return report
 
-    # ssm_scan: layer 0 and the last layer, float32, then k/q/v in bf16.
-    chunk = min(cfg.ssm_chunk, prompt)
+
+def _check_scan(calls, report, chunk, label, device):
+    """ssm_scan on each captured call, float32 and with k/q/v cast to
+    bf16, against the plain version evaluated in float64, timed."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ref import linear_scan_ref
+
     # bf16 keeps B and C broadcast over the heads (stride 0).
     bf16 = lambda t: (t[:, :, :1].to(torch.bfloat16).expand(t.shape)
                       if t.stride(2) == 0 else t.to(torch.bfloat16))
-    for i, (args, kw) in sorted(caps["ssm_scan"].calls.items()):
+    for i, (args, kw) in sorted(calls.items()):
         for dtype in ("float32", "bfloat16"):
             a = list(args)
             if dtype == "bfloat16":
@@ -2142,36 +2222,65 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
                                   warmup=1)
             nbytes, ops, peak, work = _ssm_bound(a, kw, chunk, dtype)
             b_, l_, h_, n_ = a[0].shape
-            report("ssm_scan", f"layer {i}, {dtype}", err, bad, ms, plain_ms,
-                   None, nbytes, ops, peak=peak, kernel_ms=kernel_ms, **work,
-                   B=b_, L=l_, H=h_, N=n_, P=a[1].shape[-1], chunk=chunk,
+            report("ssm_scan", f"{label(i)}, {dtype}", err, bad, ms,
+                   plain_ms, None, nbytes, ops, peak=peak,
+                   kernel_ms=kernel_ms, **work, B=b_, L=l_, H=h_, N=n_,
+                   P=a[1].shape[-1], chunk=chunk,
                    k_head_stride=a[0].stride(2), **extra)
             del prep, outs, keep, want_out
-    # flash_attention at site 0 of the prefill.
+
+
+def _check_flash(calls, report, label, device):
+    """flash_attention on each captured prefill call against its plain
+    version, timed beside the library call: SDPA, or a compiled
+    ``flex_attention`` where there is a softcap or a window."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for (args, kw) in caps["flash_attention"].calls.values():
+    for i, (args, kw) in sorted(calls.items()):
         q, k, v = args
         prep, o, keep = fa.prepare(q, k, v, **kw)
         fa.launch(prep)
         want_o = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize(device)
         err, bad = _close(2e-5, 2e-5)(o, want_o)
+        del want_o
         ms = _launch_ms(lambda: fa.launch(prep), n=10)
         plain_ms = _median_ms(lambda: attention_ref(q, k, v, **kw), reps=3,
                               warmup=1)
-        lib_ms = _launch_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                         scale=kw.get("scale")), n=10)
+        if kw.get("softcap") is None and kw.get("window") is None:
+            lib = lambda: sdpa(q, k, v, is_causal=kw["causal"],
+                               scale=kw.get("scale"),
+                               enable_gqa=k.shape[1] != q.shape[1])
+        else:
+            lib = _flex_attention(q, k, v, causal=kw["causal"],
+                                  window=kw.get("window"),
+                                  softcap=kw.get("softcap"),
+                                  scale=kw.get("scale"))
+        lib_ms = _launch_ms(lib, n=10)
         b_, h_, s_, d_ = q.shape
         pairs = _live_pairs(s_, k.shape[2], kw["causal"], kw["window"])
-        report("flash_attention", f"{cfg.name} site 0 prefill, f32", err,
-               bad, ms, plain_ms, lib_ms,
-               2 * _tensor_bytes(q) + _tensor_bytes(k, v),
+        report("flash_attention", f"{label(i)}, f32", err, bad, ms,
+               plain_ms, lib_ms, 2 * _tensor_bytes(q) + _tensor_bytes(k, v),
                4 * d_ * h_ * b_ * pairs, B=b_, H=h_, KH=k.shape[1], S=s_,
-               T=k.shape[2], D=d_)
-        del prep, o, keep, want_o
-    # decode_attention: the last step's last site, over the ring cache
-    # views the model hands it (strided [B, KH, T, D]).
-    for (args, kw) in caps["decode_attention"].calls.values():
+               T=k.shape[2], D=d_, window=kw.get("window"),
+               softcap=kw.get("softcap"))
+        del prep, o, keep
+
+
+def _check_decode(calls, report, label, device):
+    """decode_attention on each captured call, over the ring cache views
+    the model hands it (strided [B, KH, T, D]), against its plain version,
+    timed beside SDPA over the live slots, or a compiled
+    ``flex_attention`` over them where there is a softcap."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for i, (args, kw) in sorted(calls.items()):
         q, k, v, pos = args
         prep, o, keep = da.prepare(q, k, v, pos, **kw)
         da.launch(prep)
@@ -2186,32 +2295,116 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
         live_mask = _live_mask(t_, int(pos), kw.get("window"))
         live = int(live_mask.sum())
         mask = torch.from_numpy(live_mask).to(device)[None, None, None]
-        lib_ms = _launch_ms(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask,
-                                         scale=kw.get("scale"))[:, :, 0],
-                            n=20)
+        if kw.get("softcap") is None:
+            lib = lambda: sdpa(
+                q[:, :, None], k, v, attn_mask=mask, scale=kw.get("scale"),
+                enable_gqa=k.shape[1] != q.shape[1])[:, :, 0]
+        else:
+            lib = _flex_decode(q, k, v, int(pos), window=kw.get("window"),
+                               softcap=kw["softcap"], scale=kw.get("scale"))
+        lib_err = _close(2e-5, 2e-5)(lib(), want_o)[0]
+        lib_ms = _launch_ms(lib, n=20)
         b_, h_, d_ = q.shape
-        report("decode_attention",
-               f"{cfg.name} last step, site {n_sites - 1}, pos {int(pos)}, "
-               f"f32", err, bad, ms, plain_ms, lib_ms,
+        report("decode_attention", f"{label(i)}, pos {int(pos)}, f32", err,
+               bad, ms, plain_ms, lib_ms,
                2 * _tensor_bytes(q) + _tensor_bytes(k, v) * live // t_,
                4 * d_ * h_ * b_ * live, B=b_, H=h_, KH=k.shape[1], T=t_,
-               D=d_, live_slots=live, k_strides=list(k.stride()))
+               D=d_, live_slots=live, window=kw.get("window"),
+               softcap=kw.get("softcap"), k_strides=list(k.stride()),
+               library_err=lib_err)
         del prep, o, keep, want_o
-    caps.clear()
-    # Where the time goes: one prefill and one decode step, profiled.
+
+
+def _profile_serving(model, params, flags, tokens, prompt, gen, prefill_med,
+                     tps_med):
+    """Where the time goes: one prefill and one decode step, profiled."""
+    import torch
     state = {}
 
     def prefill():
         state["logits"], state["caches"] = model.prefill(
             params, {"tokens": tokens}, flags, prompt + gen)
 
-    _profile("prefill", prefill, prefill_med)
+    _profile(f"{model.cfg.name} prefill", prefill, prefill_med)
     nxt = torch.argmax(state.pop("logits"), dim=-1)
-    _profile("decode step", lambda: model.decode(params, state["caches"],
-                                                 nxt, prompt, flags),
-             batch / tps_med)
+    _profile(f"{model.cfg.name} decode step",
+             lambda: model.decode(params, state["caches"], nxt, prompt,
+                                  flags), tokens.shape[0] / tps_med)
     state.clear()
-    del params, out, tokens
+
+
+def _init_model(device, cfg, batch, prompt, gen):
+    """The model, its float32 weights drawn on the card from a seeded
+    generator, and ``make_batch``'s prompts; the peak memory counted from
+    before the draw."""
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        torch.float32, device)
+    toks = make_batch(cfg, "serve", batch, prompt, seed=0, step=0)["tokens"]
+    tokens = torch.as_tensor(toks, device=device)
+    torch.cuda.synchronize(device)
+    _line("model", arch=cfg.name, params=model.n_params(),
+          layers=cfg.n_layers, d_model=cfg.d_model, batch=batch,
+          prompt=prompt, gen=gen, init_s=f"{time.perf_counter() - t0:.1f}")
+    return model, params, tokens
+
+
+def phase_model(device, cfg=None, batch=ZAMBA["batch"],
+                prompt=ZAMBA["prompt"], gen=ZAMBA["gen"]):
+    """Serve zamba2-7b at full width and depth through
+    ``repro_torch.launch.serve.generate`` with the launch counts at 0, then
+    hold each kernel against its plain version on the arguments captured
+    from that run, time it, and check the smoke model's golden logits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.models import RuntimeFlags
+
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(ZAMBA["arch"])
+    flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
+                         compute_dtype="float32")
+    model, params, tokens = _init_model(device, cfg, batch, prompt, gen)
+    n_scan = cfg.n_layers
+    n_sites = cfg.n_layers // cfg.attn_every
+    caps = {"ssm_scan": _Capture(sk, "ssm_scan_cuda",
+                                 lambda i: i in (0, n_scan - 1)),
+            "flash_attention": _Capture(fa, "flash_attention_cuda",
+                                        lambda i: i == 0),
+            # The last decode call stands for decode.
+            "decode_attention": _Capture(
+                da, "decode_attention_cuda",
+                lambda i: i == n_sites * (gen - 1) - 1)}
+    want = {"ssm_scan": cfg.n_layers, "flash_attention": n_sites,
+            "decode_attention": n_sites * (gen - 1), "select_step": 0,
+            "tree_predict": 0, "gh_ei": 0}
+    launches, prefill_runs, tps_runs, peak_gb, prefill_med, tps_med = \
+        _serve(device, model, params, flags, tokens, prompt, gen, caps, want)
+
+    rows, failures = [], []
+    report = _reporter(rows, failures, launches)
+    # ssm_scan: layer 0 and the last layer, float32, then k/q/v in bf16.
+    _check_scan(caps["ssm_scan"].calls, report, min(cfg.ssm_chunk, prompt),
+                lambda i: f"layer {i}", device)
+    # flash_attention at site 0 of the prefill.
+    _check_flash(caps["flash_attention"].calls, report,
+                 lambda i: f"{cfg.name} site 0 prefill", device)
+    # decode_attention: the last step's last site.
+    _check_decode(caps["decode_attention"].calls, report,
+                  lambda i: f"{cfg.name} last step, site {n_sites - 1}",
+                  device)
+    caps.clear()
+    _profile_serving(model, params, flags, tokens, prompt, gen, prefill_med,
+                     tps_med)
+    del params, tokens
     torch.cuda.empty_cache()
     _zamba_golden(device)
     _line("model", phase_s=f"{time.perf_counter() - t0:.1f}")
@@ -2222,6 +2415,122 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
     return rows, launches, dict(prefill_s=prefill_runs,
                                 decode_tokens_per_s=tps_runs,
                                 peak_gb=peak_gb)
+
+
+# --------------------------------------------------------------------------- #
+# Phase 10 (zoo): xlstm-125m and gemma2-9b served at full width and depth
+# --------------------------------------------------------------------------- #
+ZOO = (dict(arch="xlstm-125m", batch=4, prompt=1000, gen=32),
+       # Past the 4096 window: the local layers' window masks in the
+       # prefill and in decode.
+       dict(arch="gemma2-9b", batch=2, prompt=4608, gen=32))
+
+
+def _slstm_share(device, model, params, flags, tokens):
+    """One xLSTM prefill with its sLSTM blocks timed (host clock around
+    each, synchronized): their seconds and share of the prefill's."""
+    import torch
+    from repro_torch.models import xlstm_model as xm
+
+    real, spent = xm.slstm_block, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize(device)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    xm.slstm_block = timed
+    try:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": tokens}, flags, 0)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    finally:
+        xm.slstm_block = real
+    _line("model", arch=model.cfg.name, slstm_blocks=len(spent),
+          slstm_s=f"{sum(spent):.4f}", prefill_s=f"{wall:.4f}",
+          slstm_share=f"{sum(spent) / wall:.3f}")
+
+
+def _serve_zoo(device, spec, rows, failures, by_path):
+    """One arch of ``ZOO``: served with the launch counts at 0, its
+    kernels held against their plain versions on the captured calls (one
+    mLSTM block; one local and one global Gemma2 layer), then profiled."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.models import RuntimeFlags
+    from repro_torch.models.xlstm_model import block_kinds
+
+    cfg = get_config(spec["arch"])
+    batch, prompt, gen = spec["batch"], spec["prompt"], spec["gen"]
+    flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
+                         compute_dtype="float32")
+    model, params, tokens = _init_model(device, cfg, batch, prompt, gen)
+    want = dict.fromkeys(_all_counters(), 0)
+    if cfg.family == "ssm":
+        n_scan = block_kinds(cfg).count("mlstm")   # a prefill; 0 a decode
+        want["ssm_scan"] = n_scan
+        caps = {"ssm_scan": _Capture(sk, "ssm_scan_cuda", lambda i: i == 0)}
+    else:
+        n = cfg.n_layers
+        want["flash_attention"] = n
+        want["decode_attention"] = n * (gen - 1)
+        # Layers 0 (local) and 1 (global) of the prefill and of the last
+        # decode step.
+        last = n * (gen - 2)
+        caps = {"flash_attention": _Capture(fa, "flash_attention_cuda",
+                                            lambda i: i < 2),
+                "decode_attention": _Capture(
+                    da, "decode_attention_cuda",
+                    lambda i: i in (last, last + 1))}
+    launches, _, _, _, prefill_med, tps_med = _serve(
+        device, model, params, flags, tokens, prompt, gen, caps, want)
+    by_path[cfg.name] = launches
+    report = _reporter(rows, failures, launches)
+    kind = lambda i: "local" if cfg.layer_window(i % cfg.n_layers) else \
+        "global"
+    if cfg.family == "ssm":
+        _check_scan(caps["ssm_scan"].calls, report,
+                    min(cfg.ssm_chunk, prompt),
+                    lambda i: f"{cfg.name} mLSTM block {i}", device)
+        _slstm_share(device, model, params, flags, tokens)
+    else:
+        _check_flash(caps["flash_attention"].calls, report,
+                     lambda i: f"{cfg.name} layer {i} ({kind(i)}) prefill",
+                     device)
+        _check_decode(caps["decode_attention"].calls, report,
+                      lambda i: f"{cfg.name} last step, layer {i - last} "
+                                f"({kind(i)})", device)
+    caps.clear()
+    _profile_serving(model, params, flags, tokens, prompt, gen, prefill_med,
+                     tps_med)
+    del model, params, tokens
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(device):
+    """Serve xlstm-125m and gemma2-9b at full width and depth (``ZOO``),
+    each with its kernels held against their plain versions, then the
+    smoke configs of ``golden_zoo.json`` against the JAX package's logits.
+    Returns (rows, launches by arch)."""
+    t0 = time.perf_counter()
+    rows, failures, by_path = [], [], {}
+    for spec in ZOO:
+        _serve_zoo(device, spec, rows, failures, by_path)
+    _zoo_golden(device)
+    _line("model", zoo_s=f"{time.perf_counter() - t0:.1f}")
+    if failures:
+        raise AssertionError(f"{len(failures)} kernel outputs on the zoo's "
+                             f"serving paths differ from the plain version: "
+                             f"{failures[:3]}")
+    return rows, by_path
 
 
 # --------------------------------------------------------------------------- #
@@ -2665,9 +2974,10 @@ def main(argv=None) -> int:
         help="comma-separated kernels of phase ops (tree_predict, gh_ei, "
              "flash_attention, decode_attention, ssm_scan), masked_argmax, "
              "the phase batched, service (phase batched's tf-cnn runs, "
-             "then phase service) and extensions: build, run only their "
-             "checks and times, and print no result line (a measurement "
-             "run, not the smoke)")
+             "then phase service), extensions and zoo (xlstm-125m and "
+             "gemma2-9b served, and the zoo's golden logits): build, run "
+             "only their checks and times, and print no result line (a "
+             "measurement run, not the smoke)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2709,7 +3019,7 @@ def main(argv=None) -> int:
         only = tuple(args.only.split(","))
         ops_only = tuple(k for k in only
                          if k not in ("masked_argmax", "batched", "service",
-                                      "extensions"))
+                                      "extensions", "zoo"))
         if "batched" in only:
             phase_kernel(device, tf_job, only_batched=True)
             phase_batched(device, tf_job)
@@ -2724,6 +3034,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"masked_argmax: {failures[:3]}")
         if "extensions" in only:
             phase_extensions(device)
+        if "zoo" in only:
+            phase_zoo(device)
         return 0
     rows, max_err = phase_kernel(device, tf_job)
     op_rows, op_launches = phase_ops(device, tf_job)
@@ -2736,10 +3048,12 @@ def main(argv=None) -> int:
     service_launches = phase_service(device, tf_job, tf_outs)
     analysis_rows, argmax_launches = phase_analysis(device)
     model_rows, model_launches, _serving = phase_model(device)
+    zoo_rows, zoo_launches = phase_zoo(device)
     # Each kernel's launches come from the path that runs it: tree_predict
-    # and gh_ei from the ops drive, the model kernels from the serving run.
-    op_launches.update({k: model_launches[k] for k in
-                        ("flash_attention", "decode_attention", "ssm_scan")})
+    # and gh_ei from the ops drive, the model kernels from the zamba2-7b
+    # serving run (and each serving path's beside it).
+    model_kernels = ("flash_attention", "decode_attention", "ssm_scan")
+    op_launches.update({k: model_launches[k] for k in model_kernels})
     op_launches["masked_argmax"] = argmax_launches
     # The depth-2 launch, the one that moves the most bytes, stands for the
     # kernel in the summary line.
@@ -2756,7 +3070,13 @@ def main(argv=None) -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": {"S": row["S"], "M": row["M"]},
-    }] + _op_summary(op_rows + model_rows + analysis_rows, op_launches)
+    }] + _op_summary(op_rows + model_rows + zoo_rows + analysis_rows,
+                     op_launches)
+    paths = {"zamba2-7b": model_launches, **zoo_launches}
+    for entry in kernels:
+        if entry["name"] in model_kernels:
+            entry["launches_by_path"] = {
+                arch: n[entry["name"]] for arch, n in paths.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

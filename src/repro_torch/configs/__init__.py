@@ -3,8 +3,8 @@
 ``get_config(arch_id)`` returns the full published config and
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests,
 as ``repro.configs`` does.  ``ARCHS`` lists every arch of the reference;
-only the archs whose family the port serves have a module here, and the
-others raise ``NotImplementedError`` (ROADMAP A11).
+only the archs whose family the port serves (hybrid, ssm, dense) have a
+module here, and the others raise ``NotImplementedError`` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ ARCHS = [
     "hubert-xlarge", "deepseek-v3-671b", "mixtral-8x22b", "zamba2-7b",
     "qwen2-vl-2b",
 ]
-PORTED = ("zamba2-7b",)
+PORTED = ("zamba2-7b", "xlstm-125m", "gemma2-9b", "gemma-2b",
+          "deepseek-7b", "granite-3-2b")
 
 
 def _module(arch: str):

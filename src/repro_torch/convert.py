@@ -76,17 +76,20 @@ def numpy_params(specs, seed: int) -> dict:
             std = s.std if s.std is not None else fan_in(s) ** -0.5
             a = (std * rng.standard_normal(s.shape)).astype(np.float32)
         leaves.append((path, a))
-    return unflatten(leaves)
+    return unflatten(leaves, specs)
 
 
 def tree_from_numpy(tree, device="cuda"):
-    """A dict of tensors from the same dict of numpy arrays, one array to
-    one tensor, nothing transposed: the reference's Zamba2 parameters or
-    serving caches (``jax.tree.map(np.asarray, tree)``) become the port's,
-    whose keys, layouts and dtypes are the reference's.  The tensors go to
-    ``device``: the card unless the caller asks for the CPU (``cuda``
-    without a card raises)."""
+    """A tree of tensors from the same tree of numpy arrays (dicts, lists
+    and tuples kept as they are), one array to one tensor, nothing
+    transposed: the reference's parameters or serving caches
+    (``jax.tree.map(np.asarray, tree)``) become the port's, whose keys,
+    layouts and dtypes are the reference's.  The tensors go to ``device``:
+    the card unless the caller asks for the CPU (``cuda`` without a card
+    raises)."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(v, device) for v in tree)
     return torch.as_tensor(np.array(tree), device=device)

@@ -1,6 +1,6 @@
 // Decode attention for Hopper (sm_90a): one query token per head against
-// a ring KV cache, with an optional sliding window, split over the cache
-// (flash-decoding).
+// a ring KV cache, with an optional sliding window and an optional softcap
+// (Gemma2's), split over the cache (flash-decoding).
 //
 // Replaces the TPU kernel `decode_attention_call` / `_kernel` of
 // src/repro/kernels/decode_attention/kernel.py (pallas_call at line 88).
@@ -9,8 +9,12 @@
 // so a [B, T, KH, D] cache goes in as its transposed view) give o
 // [B, H, D] in q's type.  Slot i of the ring holds absolute position
 // pos - ((pos - i) mod T) with floor modulo; a slot is live if that
-// position is in [0, pos] and, with a window, > pos - window.  Dead slots
-// score -0.7·FLT_MAX, as in the TPU kernel; slots past T do not exist.
+// position is in [0, pos] and, with a window, > pos - window.  A live
+// slot scores s = scale·q·k, then softcap·tanh(s / softcap) with a softcap
+// (tanhf, no fast math), as the JAX model's `_scores` does
+// (src/repro/models/attention.py); the TPU kernel takes no softcap, and
+// the JAX model decodes Gemma2 outside it.  Dead slots score -0.7·FLT_MAX,
+// as in the TPU kernel; slots past T do not exist.
 // The write position `pos` is read on the card (an int32 device scalar)
 // or passed by value, so a call never waits on the host.  The plain
 // PyTorch version is src/repro_torch/kernels/decode_attention/ref.py.
@@ -189,7 +193,8 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* src, int rows,
 
 struct Params {
   int H, KH, T, D, window;   // window <= 0: none
-  float scale;
+  float scale, softcap;
+  int use_softcap;           // 0: no softcap
   const int* pos_ptr;        // null: use pos_val
   int pos_val;
   long long sb, sh, st;      // K/V strides of batch, KV head and slot
@@ -310,9 +315,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
           sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], o_);
       if (lane == 0) {
 #pragma unroll
-        for (int u = 0; u < kPer; ++u)
-          ps[g * kTile + warp + kWarps * u] = live[u] ? sc[u] * p.scale
-                                                     : dead[u];
+        for (int u = 0; u < kPer; ++u) {
+          float x = sc[u] * p.scale;
+          if (p.use_softcap) x = p.softcap * tanhf(x / p.softcap);
+          ps[g * kTile + warp + kWarps * u] = live[u] ? x : dead[u];
+        }
       }
     }
     __syncthreads();
@@ -467,7 +474,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // multiple of 4, H not a multiple of KH, G·D > 4096, T < 1, strides not
 // multiples of 4, a split plan that leaves a split empty).  bf16 != 0: the
 // tensors are bfloat16, else float32.  pos_ptr: an int32 on the card, or
-// null to use pos_val.  window <= 0 means no window.  s_batch, s_head and
+// null to use pos_val.  window <= 0 means no window; use_softcap == 0 no
+// softcap.  s_batch, s_head and
 // s_slot are the element strides of K and V (the same for both) over
 // batch, KV head and slot: s_slot = D and s_head = T·D for a contiguous
 // cache.  `part` is float32 scratch of B·KH·n_split·G·(D + 2) values; each
@@ -476,6 +484,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, void* o, void* part,
                                        int bf16, int B, int H, int KH, int T,
                                        int D, float scale, int window,
+                                       int use_softcap, float softcap,
                                        const int* pos_ptr, int pos_val,
                                        long long s_batch, long long s_head,
                                        long long s_slot, int n_split,
@@ -494,9 +503,10 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                     && (s_batch * esize) % 16 == 0
                     && (s_head * esize) % 16 == 0
                     && (s_slot * esize) % 16 == 0;
-  const Params p{H,       KH,      T,      D,      window,
-                 scale,   pos_ptr, pos_val, s_batch, s_head,
-                 s_slot,  tiles_per_split, vec16};
+  const Params p{H,       KH,          T,       D,       window,
+                 scale,   softcap,     use_softcap,       pos_ptr,
+                 pos_val, s_batch,     s_head,  s_slot,  tiles_per_split,
+                 vec16};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pt = static_cast<float*>(part);
   return bf16 ? launch<__nv_bfloat16>(q, k, v, o, pt, B, n_split, p, st)

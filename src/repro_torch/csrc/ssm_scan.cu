@@ -8,9 +8,10 @@
 // (float32 or bfloat16, any strides: Mamba2's B and C come with a head
 // stride of 0), log_decay and gate [B, L, H] float32 (any strides) and an
 // optional initial state [B, H, N, P] float32 give y [B, L, H, P] and the
-// final state [B, H, N, P], both float32.  Any N and P that fit the shared
-// memory (kernel.py's `plan` says which).  With cum the within-chunk
-// inclusive sum of log_decay and total its last value, per chunk c:
+// final state [B, H, N, P], both float32.  Any N and P: shared memory grows
+// with the chunk only (kernel.py's `plan` says which chunks fit).  With cum
+// the within-chunk inclusive sum of log_decay and total its last value, per
+// chunk c:
 //   1. chunk state:  dS_c    = sum_j exp(total - cum_j) g_j k_j v_jᵀ
 //   2. state passing: S_c    = exp(total_c)·S_{c-1} + dS_c, S_{-1} = s0 or 0
 //   3. chunk scan:   y_i     = sum_{j<=i} (q_i·k_j) exp(cum_i - cum_j) g_j v_j
@@ -36,9 +37,15 @@
 // plain version, as the reference, sums and subtracts in float32, which
 // loses the digits of cum_i - cum_j where |cum| is much larger; the
 // kernel's weights are the more accurate, and chip_smoke.py judges the two
-// against a float64 evaluation.  Built with -fmad=false and -ftz=true:
-// where exp(cum) falls below float32's normal range the card gives 0 where
-// the CPU gives a subnormal.
+// against a float64 evaluation.  The tensor cores round each of their sums
+// toward the accumulator's magnitude, so a chain of products into one
+// accumulator loses digits in proportion to its length: each 64-wide N
+// slab's part of the scores q·kᵀ and of the carry q·S_{c-1} is summed in
+// a fresh accumulator and added to the running sum on the CUDA cores, in
+// float32 (at xlstm-125m's N = 384, one chain over all N missed
+// chip_smoke.py's gate by 3e-6 of max|y|).  Built with -fmad=false and
+// -ftz=true: where exp(cum) falls below float32's normal range the card
+// gives 0 where the CPU gives a subnormal.
 //
 // Products on the tensor cores without losing float32.  float32 inputs:
 // `mma.sync.m16n8k8` TF32 with each float32 operand x split into a TF32
@@ -78,15 +85,19 @@
 //   tile), the heaviest query tiles first: 64 query rows.  Warps w and
 //   w + 4 share 16 query rows; each takes half of every 64-key tile (32
 //   keys) and half of the carry's k-steps, and the two partial sums meet
-//   through shared memory at the end.  The q tile (all N) stays in shared
-//   memory; S_{c-1}'s P tile lands in the ring's second stage and the
-//   carry q·S_{c-1} starts the accumulator, scaled by exp(cum_i); then the
-//   64-row k and v tiles up to the diagonal stream through the two-stage
-//   ring.  Scores S = Q·Kᵀ stay in registers, are weighted and masked
-//   there, and feed the product with V as A fragments straight from the
-//   accumulator layout (TF32: the k index permuted so that a thread's two
-//   score columns 2t, 2t+1 are its A slots t, t+4, and V read with the
-//   same permutation).  A warp skips the key columns past its last row in
+//   through shared memory at the end.  N streams through a two-stage ring
+//   in 64-column slabs, so that shared memory does not grow with N
+//   (xlstm-125m's mLSTM has N = 384): first the carry, a stage a slab
+//   holding q's slab and S_{c-1}'s [64 n, 64 p] slab, the carry q·S_{c-1}
+//   (half the P tile a pass) starting the accumulator and scaled by
+//   exp(cum_i) after the last slab; then, for each 64-row key tile up to
+//   the diagonal, a stage a slab holding q's and k's slabs (and, with the
+//   last, the v tile).  q is read again for every key tile (from L2).
+//   Scores S = Q·Kᵀ accumulate over the slabs in registers, are weighted
+//   and masked there after the last, and feed the product with V as A
+//   fragments straight from the accumulator layout (TF32: the k index
+//   permuted so that a thread's two score columns 2t, 2t+1 are its A slots
+//   t, t+4, and V read with the same permutation).  A warp skips the key columns past its last row in
 //   the diagonal tile.  Each split product is issued term by term over all
 //   of a warp's accumulators, so that no two products in a row wait on one
 //   accumulator.
@@ -110,6 +121,7 @@ constexpr int kPassThreads = 256;    // phase 2
 constexpr int kRows = 64;            // rows of a query, key or slab tile
 constexpr int kPT = 64;              // columns of a P tile
 constexpr int kNT = 64;              // rows of phase 1's N tile
+constexpr int kNS = 64;              // columns of phase 3's N slab
 constexpr int kSlab = 72;            // phase 1's shared row (k and v)
 constexpr int kSmemLimit = 232448;
 
@@ -132,9 +144,10 @@ struct Params {
 };
 
 template <typename T> struct Layout;
-// Shared row strides (in elements) of phase 3: q and k rows (QS), v rows
-// (VS), S_{c-1} rows (SS, float).  Each makes its fragment reads hit 32
-// banks.  N is padded to the k-step of the product.
+// Shared row strides (in elements) of phase 3: q and k slab rows (kNS +
+// kQPad), v rows (VS), S_{c-1} slab rows (SS, float).  Each makes its
+// fragment reads hit 32 banks.  A slab's width is padded to the k-step of
+// the product.
 template <> struct Layout<float> {
   static constexpr int kStep = 8;
   static constexpr int kQPad = 4, kVS = 68, kSS = 72;
@@ -194,6 +207,9 @@ __device__ __forceinline__ void stage(T* dst, int stride, const T* src,
                  n * static_cast<int>(sizeof(T)));
     }
   } else {
+    // One element a thread a pass: bf16 loads held in flight would take
+    // registers the chunk scan's accumulators need.
+#pragma unroll 1
     for (int i = threadIdx.x; i < rows_pad * width_pad; i += kThreads) {
       const int r = i / width_pad, c = i % width_pad;
       const bool ok = r < rows && c < width;
@@ -310,6 +326,15 @@ __device__ __forceinline__ void mma3_bf16(float (&d)[J][4],
   for (int part = 2; part >= 0; --part)
 #pragma unroll
     for (int j = 0; j < J; ++j) mma_bf16(d[j], a[part], b0[j], b1[j]);
+}
+
+// Part `part` (0 head, 1 middle, 2 remainder; a constant where the caller
+// is unrolled) of split3_bf16(x0, x1).
+__device__ __forceinline__ uint32_t part3_bf16(float x0, float x1,
+                                               int part) {
+  uint32_t p0, p1, p2;
+  split3_bf16(x0, x1, p0, p1, p2);
+  return part == 0 ? p0 : part == 1 ? p1 : p2;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -527,24 +552,35 @@ ssm_state_pass_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // Phase 3: y for 64 rows of a chunk and a P tile
 // ---------------------------------------------------------------------------
+// One stage of the ring: a 64-row q slab of kNS columns, then k's slab of
+// the same shape or S_{c-1}'s slab [kNS rows n][64 columns p] (float), then
+// a v tile [64][64].  Its size does not depend on N.
+template <typename T>
+struct ScanStage {
+  using Lay = Layout<T>;
+  static constexpr int kQS = kNS + Lay::kQPad;     // q and k row stride
+  static constexpr int kQBytes = kRows * kQS * static_cast<int>(sizeof(T));
+  static constexpr int kSBytes = kNS * Lay::kSS * 4;
+  static constexpr int kKBytes = kQBytes > kSBytes ? kQBytes : kSBytes;
+  static constexpr int kVBytes = kRows * Lay::kVS * static_cast<int>(sizeof(T));
+  static constexpr int kBytes = kQBytes + kKBytes + kVBytes;
+};
+
+// Two blocks an SM (at most 128 registers a thread).  The bf16 kernel,
+// whose float32 operands go to the tensor cores in three bf16 parts, fits
+// 128 because its slab sums are made two 8-key n-tiles of the scores (8
+// registers, not 16) and one 8-column n-tile of the carry at a time.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 ssm_chunk_scan_kernel(Params p) {
   using Lay = Layout<T>;
+  using St = ScanStage<T>;
+  constexpr int QS = St::kQS, VS = Lay::kVS, SS = Lay::kSS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int chunk_pad = round_up(p.chunk, kRows);
-  const int npad = round_up(p.N, Lay::kStep);
-  const int qs_stride = npad + Lay::kQPad;
-  constexpr int VS = Lay::kVS, SS = Lay::kSS;
-  const int kv_elems = kRows * qs_stride + kRows * VS;
-  const int stage_bytes = max(kv_elems * static_cast<int>(sizeof(T)),
-                              npad * SS * 4);
   double* cum = reinterpret_cast<double*>(smem_raw);
   float* gs = reinterpret_cast<float*>(cum + chunk_pad);
-  float* ecum = gs + chunk_pad;                            // [kRows]
-  T* qs = reinterpret_cast<T*>(ecum + kRows);              // [kRows][QS]
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      qs + kRows * qs_stride);                             // 2 stages
+  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + chunk_pad);
 
   const int bh = blockIdx.x, c = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
@@ -559,14 +595,52 @@ ssm_chunk_scan_kernel(Params p) {
   const int wp = min(kPT, p.P - p0);
   const bool carry = c > 0 || p.s0 != nullptr;
 
-  const T* kb = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[2]
-                + c0 * p.sk[1];
-  const T* qb = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[2]
-                + c0 * p.sq[1];
-  const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[2]
-                + c0 * p.sv[1] + p0 * p.sv[3];
-  stage(qs, qs_stride, qb + r0 * p.sq[1], p.sq[1], p.sq[3], rows_q, p.N,
-        kRows, npad, p.vec_q);
+  // The copies' sources: the block's rows of q, k and v and its P tile of
+  // S_{c-1}, kept in shared memory rather than in registers through the
+  // step loops (the bf16 kernel's accumulators, scores and split operands
+  // need its 128).
+  __shared__ const void* src[4];
+  if (threadIdx.x == 0) {
+    src[0] = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[2]
+             + (c0 + r0) * p.sq[1];
+    src[1] = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[2]
+             + c0 * p.sk[1];
+    src[2] = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[2]
+             + c0 * p.sv[1] + p0 * p.sv[3];
+    src[3] = p.ds + (static_cast<size_t>(bh) * p.C + c) * p.N * p.P + p0;
+  }
+  __syncthreads();
+  // The steps, in order: the carry's N slabs (when there is a carry), then
+  // for each key tile kt up to the diagonal its N slabs; step st is N slab
+  // st % n_ns of the carry (st < n_ns) or of key tile st / n_ns - 1.
+  const int n_ns = (p.N + kNS - 1) / kNS;
+  const int n_kt = qt + 1;
+  const int first = carry ? 0 : n_ns;
+  const int n_steps = n_ns * (1 + n_kt);
+  auto issue = [&](int st) {
+    unsigned char* base = ring + (st & 1) * St::kBytes;
+    const int ns = st % n_ns, n0 = ns * kNS, wn = min(kNS, p.N - n0);
+    stage(reinterpret_cast<T*>(base), QS,
+          static_cast<const T*>(src[0]) + n0 * p.sq[3], p.sq[1], p.sq[3],
+          rows_q, wn, kRows, kNS, p.vec_q);
+    if (st < n_ns) {
+      stage(reinterpret_cast<float*>(base + St::kQBytes), SS,
+            static_cast<const float*>(src[3])
+                + static_cast<size_t>(n0) * p.P,
+            static_cast<long long>(p.P), 1LL, wn, wp, kNS, kPT,
+            (p.P & 3) == 0);
+    } else {
+      const int j0 = (st / n_ns - 1) * kRows, rows = min(kRows, crow - j0);
+      stage(reinterpret_cast<T*>(base + St::kQBytes), QS,
+            static_cast<const T*>(src[1]) + j0 * p.sk[1] + n0 * p.sk[3],
+            p.sk[1], p.sk[3], rows, wn, kRows, kNS, p.vec_k);
+      if (ns == n_ns - 1)                  // v with the key tile's last slab
+        stage(reinterpret_cast<T*>(base + St::kQBytes + St::kKBytes), VS,
+              static_cast<const T*>(src[2]) + j0 * p.sv[1], p.sv[1],
+              p.sv[3], rows, wp, kRows, kPT, p.vec_v);
+    }
+    cp_async_commit();
+  };
   {                                        // the chunk's cum and gate, rows
     const size_t at = (static_cast<size_t>(bh) * p.C + c) * chunk_pad;
     const int rows = r0 + kRows;           // [0, r0 + 64): 16-byte pieces
@@ -575,22 +649,7 @@ ssm_chunk_scan_kernel(Params p) {
     for (int i = threadIdx.x; i < rows / 4; i += kThreads)
       cp_async16(gs + 4 * i, p.gate + at + 4 * i, 16);
   }
-  float* sp = reinterpret_cast<float*>(ring + stage_bytes);   // stage 1
-  if (carry)
-    stage(sp, SS, p.ds + (static_cast<size_t>(bh) * p.C + c) * p.N * p.P
-                  + p0, static_cast<long long>(p.P), 1LL, p.N, wp, npad,
-          kPT, (p.P & 3) == 0);
-  cp_async_commit();
-  auto issue = [&](int kt) {
-    T* ks = reinterpret_cast<T*>(ring + (kt & 1) * stage_bytes);
-    const int j0 = kt * kRows, rows = min(kRows, crow - j0);
-    stage(ks, qs_stride, kb + j0 * p.sk[1], p.sk[1], p.sk[3], rows, p.N,
-          kRows, npad, p.vec_k);
-    stage(ks + kRows * qs_stride, VS, vb + j0 * p.sv[1], p.sv[1], p.sv[3],
-          rows, wp, kRows, kPT, p.vec_v);
-    cp_async_commit();
-  };
-  issue(0);
+  issue(first);                            // one group with cum and gate
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -598,187 +657,243 @@ ssm_chunk_scan_kernel(Params p) {
   // key tile (32 keys from kh) and of the carry's k-steps, and the two
   // partial sums meet at the end.
   const int qr = (warp & 3) * 16, kh = (warp >> 2) * 32;
-  float acc[8][4];
+  float acc[8][4];                         // y, 16 rows x 64 columns
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-
-  cp_async_wait<1>();                      // q, cum, gate and S_{c-1}
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows_q; i += kThreads)
-    ecum[i] = expf(static_cast<float>(cum[r0 + i]));
-  __syncthreads();
-  if (carry) {                             // acc = exp(cum_i)·(q_i S_{c-1})
-    for (int k0 = (warp >> 2) * Lay::kStep; k0 < npad;
-         k0 += 2 * Lay::kStep) {
-      if constexpr (sizeof(T) == 4) {
-        const float* qa = qs + (qr + g) * qs_stride + k0 + t;
-        uint32_t ah[4], al[4];
-        split_tf32(qa[0], ah[0], al[0]);
-        split_tf32(qa[8 * qs_stride], ah[1], al[1]);
-        split_tf32(qa[4], ah[2], al[2]);
-        split_tf32(qa[8 * qs_stride + 4], ah[3], al[3]);
-        const float* sb = sp + (k0 + t) * SS + g;
-        float b0[8], b1[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          b0[j] = sb[8 * j];
-          b1[j] = sb[4 * SS + 8 * j];
-        }
-        mma3_tf32(acc, ah, al, b0, b1);
-      } else {
-        const T* qa = qs + (qr + g) * qs_stride + k0 + 2 * t;
-        const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * qs_stride),
-                               ld_u32(qa + 8),
-                               ld_u32(qa + 8 * qs_stride + 8)};
-        const float* sb = sp + (k0 + 2 * t) * SS + g;
-#pragma unroll
-        for (int j0 = 0; j0 < 8; j0 += 4) {
-          uint32_t b0[4][3], b1[4][3];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float* sj = sb + 8 * (j0 + j);
-            split3_bf16(sj[0], sj[SS], b0[j][0], b0[j][1], b0[j][2]);
-            split3_bf16(sj[8 * SS], sj[9 * SS], b1[j][0], b1[j][1],
-                        b1[j][2]);
-          }
-#pragma unroll
-          for (int part = 2; part >= 0; --part)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              mma_bf16(acc[j0 + j], a, b0[j][part], b1[j][part]);
-        }
-      }
-    }
-    const float e0 = ecum[min(qr + g, kRows - 1)];
-    const float e8 = ecum[min(qr + g + 8, kRows - 1)];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc[j][0] *= e0;
-      acc[j][1] *= e0;
-      acc[j][2] *= e8;
-      acc[j][3] *= e8;
-    }
-  }
-  __syncthreads();                         // stage 1 is free for k and v
-
-  const int n_kt = qt + 1;                 // key tiles up to the diagonal
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
-      issue(kt + 1);
+  // Issues the next step's copies and waits until step st has landed.
+  auto land = [&](int st) {
+    if (st + 1 < n_steps) {
+      issue(st + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();                       // tile kt has landed
-    const T* ks = reinterpret_cast<const T*>(ring + (kt & 1) * stage_bytes);
-    const T* vs = ks + kRows * qs_stride;
+    __syncthreads();
+  };
+
+  // The carry's steps, then the key tiles' (two loops, so that the scores
+  // are not live in the first).
+  int st = first;
+  for (; st < n_ns; ++st) {                // acc += q_i S_{c-1}, one slab
+    land(st);
+    const unsigned char* base = ring + (st & 1) * St::kBytes;
+    const T* qs = reinterpret_cast<const T*>(base);
+    const int ns = st;
+    const int kw = round_up(min(kNS, p.N - ns * kNS), Lay::kStep);
+    const float* sp = reinterpret_cast<const float*>(base + St::kQBytes);
+    // float32: half the P tile a pass (4 of the 8 n-tiles); bf16: one
+    // n-tile a pass.  The slab's part of the carry goes to a fresh
+    // accumulator and joins acc on the CUDA cores, as the scores' parts do.
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int j0 = 0; j0 < 8; j0 += 4) {
+        float cs[4][4] = {};
+        for (int k0 = (warp >> 2) * Lay::kStep; k0 < kw;
+             k0 += 2 * Lay::kStep) {
+          const float* qa = qs + (qr + g) * QS + k0 + t;
+          uint32_t ah[4], al[4];
+          split_tf32(qa[0], ah[0], al[0]);
+          split_tf32(qa[8 * QS], ah[1], al[1]);
+          split_tf32(qa[4], ah[2], al[2]);
+          split_tf32(qa[8 * QS + 4], ah[3], al[3]);
+          const float* sbp = sp + (k0 + t) * SS + g + 8 * j0;
+          float b0[4], b1[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            b0[j] = sbp[8 * j];
+            b1[j] = sbp[4 * SS + 8 * j];
+          }
+          mma3_tf32(cs, ah, al, b0, b1);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j0 + j][e] += cs[j][e];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float cs[4] = {};
+        for (int k0 = (warp >> 2) * Lay::kStep; k0 < kw;
+             k0 += 2 * Lay::kStep) {
+          const T* qa = qs + (qr + g) * QS + k0 + 2 * t;
+          const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * QS),
+                                 ld_u32(qa + 8), ld_u32(qa + 8 * QS + 8)};
+          const float* sj = sp + (k0 + 2 * t) * SS + g + 8 * j;
+          uint32_t b0[3], b1[3];
+          split3_bf16(sj[0], sj[SS], b0[0], b0[1], b0[2]);
+          split3_bf16(sj[8 * SS], sj[9 * SS], b1[0], b1[1], b1[2]);
+#pragma unroll
+          for (int part = 2; part >= 0; --part)
+            mma_bf16(cs, a, b0[part], b1[part]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += cs[e];
+      }
+    }
+    if (ns == n_ns - 1) {                  // the carry times exp(cum_i)
+      const float e0 = expf(static_cast<float>(
+          cum[min(r0 + qr + g, crow - 1)]));
+      const float e8 = expf(static_cast<float>(
+          cum[min(r0 + qr + g + 8, crow - 1)]));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[j][0] *= e0;
+        acc[j][1] *= e0;
+        acc[j][2] *= e8;
+        acc[j][3] *= e8;
+      }
+    }
+    __syncthreads();                       // the step's stage is free
+  }
+  float s[4][4] = {};                      // scores, 16 rows x 32 keys
+  for (; st < n_steps; ++st) {
+    land(st);
+    const unsigned char* base = ring + (st & 1) * St::kBytes;
+    const T* qs = reinterpret_cast<const T*>(base);
+    const int ns = st % n_ns;
+    const int kw = round_up(min(kNS, p.N - ns * kNS), Lay::kStep);
+    const int kt = st / n_ns - 1;
+    const T* ks = reinterpret_cast<const T*>(base + St::kQBytes);
     // In the diagonal tile the warp's rows see keys up to qr + 15 only:
     // nk of its four 8-key n-tiles (0, 2 or 4).
     const int last = qr + 15 - kh;
     const int nk = kt < qt ? 4 : last < 0 ? 0 : min(4, last / 8 + 1);
-
-    float s[4][4];                         // scores, 16 rows x 32 keys
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-    for (int k0 = 0; k0 < npad; k0 += Lay::kStep) {
-      if constexpr (sizeof(T) == 4) {
-        const float* qa = qs + (qr + g) * qs_stride + k0 + t;
+    // The slab's part joins the scores on the CUDA cores, in float32: the
+    // tensor cores round each sum to the accumulator's magnitude, so one
+    // chain over all N would lose digits in proportion to N.
+    if constexpr (sizeof(T) == 4) {
+      float sl[4][4] = {};                 // the slab's part of the scores
+      for (int k0 = 0; k0 < kw; k0 += Lay::kStep) {   // sl = q kᵀ, one slab
+        const float* qa = qs + (qr + g) * QS + k0 + t;
         uint32_t ah[4], al[4];
         split_tf32(qa[0], ah[0], al[0]);
-        split_tf32(qa[8 * qs_stride], ah[1], al[1]);
+        split_tf32(qa[8 * QS], ah[1], al[1]);
         split_tf32(qa[4], ah[2], al[2]);
-        split_tf32(qa[8 * qs_stride + 4], ah[3], al[3]);
+        split_tf32(qa[8 * QS + 4], ah[3], al[3]);
         float b0[4], b1[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float* kp = ks + (kh + 8 * j + g) * qs_stride + k0 + t;
+          const float* kp = ks + (kh + 8 * j + g) * QS + k0 + t;
           b0[j] = kp[0];
           b1[j] = kp[4];
         }
-        mma3_tf32(s, ah, al, b0, b1, nk);
-      } else {
-        const T* qa = qs + (qr + g) * qs_stride + k0 + 2 * t;
-        const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * qs_stride),
-                               ld_u32(qa + 8),
-                               ld_u32(qa + 8 * qs_stride + 8)};
+        mma3_tf32(sl, ah, al, b0, b1, nk);
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < nk) {
-            const T* kp = ks + (kh + 8 * j + g) * qs_stride + k0 + 2 * t;
-            mma_bf16(s[j], a, ld_u32(kp), ld_u32(kp + 8));
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = ns == 0 ? sl[j][e] : s[j][e] + sl[j][e];
+    } else {
+      // Two 8-key n-tiles a pass over the slab: the same sums as four
+      // accumulators side by side, in 8 registers.
+#pragma unroll
+      for (int j0 = 0; j0 < 4; j0 += 2) {
+        float sl[2][4] = {};
+        if (j0 < nk) {
+          for (int k0 = 0; k0 < kw; k0 += Lay::kStep) {
+            const T* qa = qs + (qr + g) * QS + k0 + 2 * t;
+            const uint32_t a[4] = {ld_u32(qa), ld_u32(qa + 8 * QS),
+                                   ld_u32(qa + 8), ld_u32(qa + 8 * QS + 8)};
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const T* kp = ks + (kh + 8 * (j0 + j) + g) * QS + k0 + 2 * t;
+              mma_bf16(sl[j], a, ld_u32(kp), ld_u32(kp + 8));
+            }
           }
         }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j0 + j][e] = ns == 0 ? sl[j][e] : s[j0 + j][e] + sl[j][e];
       }
     }
-    // (q_i·k_j)·exp(cum_i - cum_j)·g_j for j <= i, else 0.  Rows past the
-    // chunk get what they get: no row mixes with another, and they are
-    // never stored; a key past the chunk is past every real row.
-    const int i0 = r0 + qr + g;
-    const double ci[2] = {cum[min(i0, crow - 1)], cum[min(i0 + 8, crow - 1)]};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j < nk) {
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int key = kt * kRows + kh + 8 * j + 2 * t + u;
-          const int kc = min(key, crow - 1);
-          const double ck = cum[kc];
-          const float gk = gs[kc];
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float& x = s[j][2 * r + u];
-            x = key <= i0 + 8 * r
-                    ? x * expf(static_cast<float>(ci[r] - ck)) * gk : 0.0f;
-          }
-        }
-      }
-    }
-    // acc += weighted scores · V
-    if constexpr (sizeof(T) == 4) {
+    if (ns == n_ns - 1) {                  // the key tile's scores are whole
+      const T* vs = reinterpret_cast<const T*>(base + St::kQBytes
+                                               + St::kKBytes);
+      // (q_i·k_j)·exp(cum_i - cum_j)·g_j for j <= i, else 0.  Rows past
+      // the chunk get what they get: no row mixes with another, and they
+      // are never stored; a key past the chunk is past every real row.
+      const int i0 = r0 + qr + g;
+      const double ci[2] = {cum[min(i0, crow - 1)],
+                            cum[min(i0 + 8, crow - 1)]};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (j < nk) {
-          // A slots t and t + 4 are the keys 2t and 2t + 1 of n-tile j.
-          uint32_t ah[4], al[4];
-          split_tf32(s[j][0], ah[0], al[0]);
-          split_tf32(s[j][2], ah[1], al[1]);
-          split_tf32(s[j][1], ah[2], al[2]);
-          split_tf32(s[j][3], ah[3], al[3]);
-          const float* vp = vs + (kh + 8 * j + 2 * t) * VS + g;
-          float b0[8], b1[8];
 #pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            b0[n] = vp[8 * n];
-            b1[n] = vp[VS + 8 * n];
+          for (int u = 0; u < 2; ++u) {
+            const int key = kt * kRows + kh + 8 * j + 2 * t + u;
+            const int kc = min(key, crow - 1);
+            const double ck = cum[kc];
+            const float gk = gs[kc];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float& x = s[j][2 * r + u];
+              x = key <= i0 + 8 * r
+                      ? x * expf(static_cast<float>(ci[r] - ck)) * gk
+                      : 0.0f;
+            }
           }
-          mma3_tf32(acc, ah, al, b0, b1);
         }
       }
-    } else {
+      // acc += weighted scores · V
+      if constexpr (sizeof(T) == 4) {
 #pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        if (j < nk) {                      // keys kh + 8j .. kh + 8j + 15
-          uint32_t a[3][4];
-          split3_bf16(s[j][0], s[j][1], a[0][0], a[1][0], a[2][0]);
-          split3_bf16(s[j][2], s[j][3], a[0][1], a[1][1], a[2][1]);
-          split3_bf16(s[j + 1][0], s[j + 1][1], a[0][2], a[1][2], a[2][2]);
-          split3_bf16(s[j + 1][2], s[j + 1][3], a[0][3], a[1][3], a[2][3]);
-          const T* vp = vs + (kh + 8 * j + 2 * t) * VS + g;
-          uint32_t b0[8], b1[8];
+        for (int j = 0; j < 4; ++j) {
+          if (j < nk) {
+            // A slots t and t + 4 are the keys 2t and 2t + 1 of n-tile j.
+            uint32_t ah[4], al[4];
+            split_tf32(s[j][0], ah[0], al[0]);
+            split_tf32(s[j][2], ah[1], al[1]);
+            split_tf32(s[j][1], ah[2], al[2]);
+            split_tf32(s[j][3], ah[3], al[3]);
+            const float* vp = vs + (kh + 8 * j + 2 * t) * VS + g;
+            float b0[8], b1[8];
 #pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            b0[n] = pack2(vp[8 * n], vp[VS + 8 * n]);
-            b1[n] = pack2(vp[8 * VS + 8 * n], vp[9 * VS + 8 * n]);
+            for (int n = 0; n < 8; ++n) {
+              b0[n] = vp[8 * n];
+              b1[n] = vp[VS + 8 * n];
+            }
+            mma3_tf32(acc, ah, al, b0, b1);
           }
-          mma3_bf16(acc, a, b0, b1);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; j += 2) {
+          if (j < nk) {                  // keys kh + 8j .. kh + 8j + 15
+            const T* vp = vs + (kh + 8 * j + 2 * t) * VS + g;
+#pragma unroll
+            for (int n0 = 0; n0 < 8; n0 += 4) {  // half the columns a pass
+              uint32_t b0[4], b1[4];
+#pragma unroll
+              for (int n = 0; n < 4; ++n) {
+                const T* vn = vp + 8 * (n0 + n);
+                b0[n] = pack2(vn[0], vn[VS]);
+                b1[n] = pack2(vn[8 * VS], vn[9 * VS]);
+              }
+              // The scores' bf16 parts, each made where its products are
+              // issued (the smallest first): 4 registers, not 12.
+#pragma unroll
+              for (int part = 2; part >= 0; --part) {
+                const uint32_t a[4] = {
+                    part3_bf16(s[j][0], s[j][1], part),
+                    part3_bf16(s[j][2], s[j][3], part),
+                    part3_bf16(s[j + 1][0], s[j + 1][1], part),
+                    part3_bf16(s[j + 1][2], s[j + 1][3], part)};
+#pragma unroll
+                for (int n = 0; n < 4; ++n)
+                  mma_bf16(acc[n0 + n], a, b0[n], b1[n]);
+              }
+            }
+          }
         }
       }
     }
-    __syncthreads();                       // the tile's stage is free
+    __syncthreads();                       // the step's stage is free
   }
 
   // The second half's partial sums through the free ring, fragment by
@@ -816,15 +931,8 @@ size_t state_smem(const Params& p) {
 
 template <typename T>
 size_t scan_smem(const Params& p) {
-  using Lay = Layout<T>;
   const int chunk_pad = round_up(p.chunk, kRows);
-  const int npad = round_up(p.N, Lay::kStep);
-  const int qs_stride = npad + Lay::kQPad;
-  const size_t kv = (kRows * qs_stride + kRows * Lay::kVS) * sizeof(T);
-  const size_t s_bytes = static_cast<size_t>(npad) * Lay::kSS * 4;
-  const size_t st = kv > s_bytes ? kv : s_bytes;
-  return 12 * static_cast<size_t>(chunk_pad) + 4 * kRows
-         + kRows * qs_stride * sizeof(T) + 2 * st;
+  return 12 * static_cast<size_t>(chunk_pad) + 2 * ScanStage<T>::kBytes;
 }
 
 // phases: bit 0 chunk state, bit 1 state passing, bit 2 chunk scan (7 for

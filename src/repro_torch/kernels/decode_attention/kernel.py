@@ -38,7 +38,7 @@ TILE = 64
 def _fn():
     return capi.entry(_OP, "decode_attention_launch",
                       [capi.P] * 5 + [capi.I] * 6
-                      + [capi.F, capi.I, capi.P, capi.I]
+                      + [capi.F, capi.I, capi.I, capi.F, capi.P, capi.I]
                       + [ctypes.c_longlong] * 3 + [capi.I, capi.I, capi.P])
 
 
@@ -75,7 +75,7 @@ def _check_cache(name, t, dtype, shape, device):
                          f"that are multiples of 4, got {t.stride()}")
 
 
-def prepare(q, k, v, pos, *, scale=None, window=None):
+def prepare(q, k, v, pos, *, scale=None, window=None, softcap=None):
     """Returns ``(args, out, keep)``: the C entry's arguments, the output
     tensor and the tensors ``args`` points into.  ``pos`` is a Python int
     (passed by value) or an integer tensor on the card (read there)."""
@@ -96,6 +96,8 @@ def prepare(q, k, v, pos, *, scale=None, window=None):
                          f"{MAX_GROUP_WIDTH} values")
     if window is not None and window <= 0:
         raise ValueError(f"{_OP}: window={window} must be positive")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"{_OP}: softcap={softcap} must be positive")
     pos_t = None
     if isinstance(pos, torch.Tensor):
         if pos.numel() != 1:
@@ -113,6 +115,8 @@ def prepare(q, k, v, pos, *, scale=None, window=None):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             part.data_ptr(), int(q.dtype == torch.bfloat16), b, h, kh, t, d,
             float(np.float32(scale)), 0 if window is None else int(window),
+            int(softcap is not None),
+            float(np.float32(0.0 if softcap is None else softcap)),
             capi.ptr(pos_t), pos_val, *k.stride()[:3], n_split, per,
             capi.stream(dev))
     return args, o, (q, k, v, pos_t, part)
@@ -124,10 +128,12 @@ def launch(args) -> None:
     capi.raise_on_error(_OP, _fn()(*args))
 
 
-def decode_attention_cuda(q, k, v, pos, *, scale=None, window=None):
+def decode_attention_cuda(q, k, v, pos, *, scale=None, window=None,
+                          softcap=None):
     """Decode attention on the card; the contract of
     :func:`repro_torch.kernels.decode_attention.ref.decode_attention_ref`."""
-    args, out, _keep = prepare(q, k, v, pos, scale=scale, window=window)
+    args, out, _keep = prepare(q, k, v, pos, scale=scale, window=window,
+                               softcap=softcap)
     launch(args)
     decode_attention_cuda.launches += 1
     return out

@@ -9,17 +9,18 @@ from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 __all__ = ["decode_attention"]
 
 
-def decode_attention(q, k, v, pos, *, scale=None, window=None, bk=1024,
-                     force: str = "auto"):
+def decode_attention(q, k, v, pos, *, scale=None, window=None,
+                     softcap=None, bk=1024, force: str = "auto"):
     """q [B, H, D]; k, v [B, KH, T, D] ring caches; ``pos`` the scalar write
     position (a Python int or an integer tensor) -> [B, H, D].
 
     The kernel for CUDA tensors, the plain version for CPU tensors (see
-    ``kernels.dispatch``).  ``bk`` is the TPU kernel's key block, kept for
-    its signature; the CUDA kernel picks its own.
+    ``kernels.dispatch``).  ``softcap`` caps the scores as the JAX model's
+    ``attend`` does (the TPU kernel has none).  ``bk`` is the TPU kernel's
+    key block, kept for its signature; the CUDA kernel picks its own.
     """
     del bk
-    kw = dict(scale=scale, window=window)
+    kw = dict(scale=scale, window=window, softcap=softcap)
     plain = lambda: _ref.decode_attention_ref(q, k, v, pos, **kw)
     if resolve_mode(force, q.device, op="decode_attention") == "ref":
         return plain()

@@ -3,7 +3,9 @@ contract as the CUDA kernel in ``csrc/decode_attention.cu``.
 
 The PyTorch form of ``repro.kernels.decode_attention.ref.
 decode_attention_ref``: the KV heads repeated to the query heads, float32
-scores, the ring positions ``pos - ((pos - slot) mod T)`` with floor
+scores (softcapped, ``softcap·tanh(s / softcap)`` after the scale, where
+one is given, as the JAX model's ``attention._scores``), the ring
+positions ``pos - ((pos - slot) mod T)`` with floor
 modulo (``torch.remainder``), dead and out-of-window slots at -0.7·f32max,
 a softmax and the float32 value product, rounded to q's dtype.
 """
@@ -17,7 +19,8 @@ from repro_torch.kernels.flash_attention.ref import NEG
 __all__ = ["decode_attention_ref"]
 
 
-def decode_attention_ref(q, k, v, pos, *, scale=None, window=None):
+def decode_attention_ref(q, k, v, pos, *, scale=None, window=None,
+                         softcap=None):
     """q [B, H, D]; k, v [B, KH, T, D]; pos a scalar -> [B, H, D]."""
     h, d = q.shape[1:]
     kh, t = k.shape[1], k.shape[2]
@@ -26,6 +29,8 @@ def decode_attention_ref(q, k, v, pos, *, scale=None, window=None):
     k = torch.repeat_interleave(k, rep, dim=1).to(torch.float32)
     v = torch.repeat_interleave(v, rep, dim=1).to(torch.float32)
     s = torch.einsum("bhd,bhtd->bht", q.to(torch.float32), k) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=q.device)
     slot = torch.arange(t, device=q.device)
     k_pos = pos - torch.remainder(pos - slot, t)

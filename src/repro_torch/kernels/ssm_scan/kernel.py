@@ -30,6 +30,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 ROWS = 64                # rows of a query, key or slab tile
 P_TILE = 64              # columns of y and of the state a block computes
 N_TILE = 64              # rows of the state a chunk-state block computes
+N_SLAB = 64              # columns of N a chunk-scan stage holds
 SMEM_LIMIT = 232448      # dynamic shared memory a block may opt in to
 MAX_CHUNKS = 65535       # the chunk index is a grid dimension
 _STRIDES = ctypes.c_longlong * 18
@@ -47,17 +48,18 @@ def smem_bytes(n: int, chunk: int, bf16: bool) -> tuple[int, int]:
     """Shared bytes of the chunk-state and the chunk-scan kernels (the
     sizes ``csrc/ssm_scan.cu`` computes).  Both hold the chunk's cumsum
     (float64) and gate; the first a two-stage ring of 64-row k and v slabs
-    of 64 columns, the second the q tile over all N and a two-stage ring of
-    k (all N) and v tiles, or of the previous state's P tile [N, 64]."""
+    of 64 columns, the second a two-stage ring whose stage holds a 64-row q
+    slab of 64 columns of N, k's slab of the same shape or the previous
+    state's [64, 64] slab, and a v tile.  N streams through both in 64-wide
+    pieces, so ``n`` does not change the sizes: only the chunk does."""
+    del n
     el = 2 if bf16 else 4
-    step, q_pad, vs, ss = (16, 8, 72, 68) if bf16 else (8, 4, 68, 72)
+    q_pad, vs, ss = (8, 72, 68) if bf16 else (4, 68, 72)
     cum = 12 * _round_up(chunk, ROWS)
     state = cum + 2 * 2 * ROWS * 72 * el
-    npad = _round_up(n, step)
-    qs = (npad + q_pad) * el
-    stage = max(ROWS * (qs + vs * el), npad * ss * 4)
-    scan = cum + 4 * ROWS + ROWS * qs + 2 * stage
-    return state, scan
+    q_slab = ROWS * (N_SLAB + q_pad) * el
+    stage = q_slab + max(q_slab, N_SLAB * ss * 4) + ROWS * vs * el
+    return state, cum + 2 * stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,8 +91,8 @@ def plan(k, v, q, log_decay, gate, *, chunk: int,
     """Check the inputs (device, dtypes, shapes) and the limits of the
     kernels, and return the launch geometry.  Raises ``ValueError`` for
     what the kernels cannot take: an empty input, chunk < 1, more than
-    65535 chunks, or an N or chunk whose tiles overflow a block's shared
-    memory."""
+    65535 chunks, or a chunk whose cumsum overflows a block's shared
+    memory (any N fits: it streams through in slabs)."""
     dev = capi.require_cuda(_OP, k)
     b, l, h, n = k.shape
     p = v.shape[-1]
@@ -119,10 +121,9 @@ def plan(k, v, q, log_decay, gate, *, chunk: int,
     smem = smem_bytes(n, chunk, bf16)
     if max(smem) > SMEM_LIMIT:
         raise ValueError(
-            f"{_OP}: N = {n} and chunk {chunk} need {max(smem)} bytes of "
-            f"shared memory a block (limit {SMEM_LIMIT}): the chunk scan "
-            f"keeps a 64-row q tile and two 64-row k tiles over all N, and "
-            f"the chunk's cumsum")
+            f"{_OP}: chunk {chunk} needs {max(smem)} bytes of shared "
+            f"memory a block (limit {SMEM_LIMIT}): the kernels keep the "
+            f"chunk's cumsum and gate, 12 bytes a row, beside their rings")
     vec = sum(bit for bit, t in ((1, k), (2, q), (4, v)) if _vec16(t))
     n_p = -(-p // P_TILE)
     # The state-passing kernel takes 4 elements a thread (float4) where N·P

@@ -14,6 +14,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import transformer as tf
+from repro_torch.models import xlstm_model as xm
 from repro_torch.models import zamba as zb
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import count_params, init_params
@@ -21,9 +23,8 @@ from repro_torch.models.params import count_params, init_params
 __all__ = ["Model", "build_model"]
 
 # The ROADMAP item that ports each family the port does not serve yet.
-_TODO = {"dense": "A11 (dense transformer family)",
-         "moe": "A11 (MoE/MLA family)", "vlm": "A11 (VLM family)",
-         "audio": "A11 (audio family)", "ssm": "A11 (xLSTM family)"}
+_TODO = {"moe": "A11 (MoE/MLA family)", "vlm": "A11 (VLM family)",
+         "audio": "A11 (audio family)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +33,7 @@ class Model:
     specs: Callable          # () -> ParamSpec tree
     prefill: Callable        # (params, batch, flags, cache_len) -> (logits, caches)
     decode: Callable         # (params, caches, tokens, pos, flags) -> (logits, caches)
-    cache_shapes: Callable   # (batch, cache_len) -> dict of shape tuples
+    cache_shapes: Callable   # (batch, cache_len) -> tree of shape tuples
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device="cuda"):
@@ -53,6 +54,26 @@ def build_model(cfg: ModelConfig) -> Model:
             decode=lambda p, c, t, pos, f: zb.zamba_decode(p, cfg, f, c, t,
                                                            pos),
             cache_shapes=lambda b, cl: zb.zamba_cache_shapes(cfg, b, cl),
+        )
+    if cfg.family == "dense":
+        return Model(
+            cfg=cfg,
+            specs=lambda: tf.transformer_specs(cfg),
+            prefill=lambda p, b, f, cl: tf.transformer_prefill(p, cfg, f, b,
+                                                               cl),
+            decode=lambda p, c, t, pos, f: tf.transformer_decode(p, cfg, f, c,
+                                                                 t, pos),
+            cache_shapes=lambda b, cl: tf.transformer_cache_shapes(cfg, b,
+                                                                   cl),
+        )
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg,
+            specs=lambda: xm.xlstm_specs(cfg),
+            prefill=lambda p, b, f, cl: xm.xlstm_prefill(p, cfg, f, b, cl),
+            decode=lambda p, c, t, pos, f: xm.xlstm_decode_step(p, cfg, f, c,
+                                                                t, pos),
+            cache_shapes=lambda b, cl: xm.xlstm_cache_shapes(cfg, b, cl),
         )
     if cfg.family in _TODO:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "

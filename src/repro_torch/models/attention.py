@@ -52,12 +52,11 @@ def attend(q, k, v, *, causal: bool = True, window: int | None = None,
         raise NotImplementedError(
             f"attend over a ring cache takes one query, got {q.shape[1]}; "
             "a prefill writes its cache with ring_place")
-    if not causal or softcap is not None:
-        raise NotImplementedError("decode attention is causal, without a "
-                                  "softcap")
+    if not causal:
+        raise NotImplementedError("decode attention is causal")
     # The kernel reads the [B, T, KH, D] caches through their strides.
     o = decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2), pos,
-                         **kw)
+                         softcap=softcap, **kw)
     return o[:, None]
 
 

@@ -2,8 +2,8 @@
 
 A copy of ``repro.models.config`` (data only), so the port never imports
 the JAX package.  One frozen dataclass covers every architecture family;
-family-specific fields default to "off".  Only the hybrid family
-(Zamba2) has a model in the port so far.
+family-specific fields default to "off".  The hybrid (Zamba2), ssm
+(xLSTM) and dense families have models in the port so far.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """Parameter specs: declare once, then count, draw or convert.
 
-Models declare their parameters as a nested dict of :class:`ParamSpec`
-(shape + logical axis names + initializer), as ``repro.models.params``
-does, and the parameters themselves are a nested dict of tensors of the
-same structure and the same layouts.  Leaves are visited in the order of
-``jax.tree`` flattening: dict keys sorted at every level.
+Models declare their parameters as a tree of :class:`ParamSpec` (shape +
+logical axis names + initializer) made of dicts, lists and tuples (the
+xLSTM stack is a list of per-block dicts), as ``repro.models.params``
+does, and the parameters themselves are a tree of tensors of the same
+structure and the same layouts.  Leaves are visited in the order of
+``jax.tree`` flattening: dict keys sorted, sequence items in index order,
+at every level.
 """
 
 from __future__ import annotations
@@ -38,24 +40,31 @@ def spec(shape, axes, init: str = "normal", std: float | None = None
 
 
 def spec_leaves(specs, prefix: tuple = ()):
-    """``[(path, ParamSpec)]`` in ``jax.tree`` order (keys sorted)."""
+    """``[(path, ParamSpec)]`` in ``jax.tree`` order: dict keys sorted,
+    sequence items in index order.  A path holds the dict keys and the
+    sequence indices on the way."""
     if isinstance(specs, ParamSpec):
         return [(prefix, specs)]
+    items = (sorted(specs.items()) if isinstance(specs, dict)
+             else enumerate(specs))
     out = []
-    for key in sorted(specs):
-        out += spec_leaves(specs[key], prefix + (key,))
+    for key, sub in items:
+        out += spec_leaves(sub, prefix + (key,))
     return out
 
 
-def unflatten(paths_and_values) -> dict:
-    """The nested dict of ``[(path, value)]``."""
-    tree: dict = {}
-    for path, value in paths_and_values:
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value
-    return tree
+def unflatten(paths_and_values, like):
+    """The tree of ``like``'s structure (its dicts, lists and tuples) with
+    the values of ``[(path, value)]`` at its leaves."""
+    values = dict(paths_and_values)
+
+    def build(node, path):
+        if path in values:
+            return values[path]
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        return type(node)(build(v, path + (i,)) for i, v in enumerate(node))
+    return build(like, ())
 
 
 def fan_in(s: ParamSpec) -> int:
@@ -89,7 +98,7 @@ def init_params(specs, generator: torch.Generator, dtype=torch.float32,
             t = torch.randn(s.shape, generator=generator, device=dev,
                             dtype=torch.float32).mul_(std).to(dtype)
         leaves.append((path, t))
-    return unflatten(leaves)
+    return unflatten(leaves, specs)
 
 
 def count_params(specs) -> int:

@@ -1,0 +1,78 @@
+"""xLSTM language model: a mixed mLSTM / sLSTM block stack — the serving
+path of ``repro.models.xlstm_model`` in PyTorch.
+
+Parameters are the reference's tree: ``blocks`` is a list of per-block
+dicts, in block order.  Serving state is a list with one entry a block: a
+dict (conv, c) for an mLSTM block and a 4-tuple (h, c, n, m) for an sLSTM
+block.  Training (``xlstm_loss``, its remat and cache axes) waits for the
+training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (embed, embed_specs, rmsnorm,
+                                       rmsnorm_spec, unembed)
+from repro_torch.models.xlstm import (mlstm_block, mlstm_decode, mlstm_specs,
+                                      mlstm_state_shapes, slstm_block,
+                                      slstm_decode, slstm_specs,
+                                      slstm_state_shapes)
+
+__all__ = ["xlstm_specs", "xlstm_prefill", "xlstm_decode_step",
+           "xlstm_cache_shapes", "block_kinds"]
+
+
+def block_kinds(cfg: ModelConfig) -> list[str]:
+    """'slstm' at every (i % slstm_every == slstm_at), else 'mlstm'."""
+    if not cfg.slstm_every:
+        return ["mlstm"] * cfg.n_layers
+    return ["slstm" if i % cfg.slstm_every == cfg.slstm_at else "mlstm"
+            for i in range(cfg.n_layers)]
+
+
+def xlstm_specs(cfg: ModelConfig):
+    blocks = [mlstm_specs(cfg) if k == "mlstm" else slstm_specs(cfg)
+              for k in block_kinds(cfg)]
+    return {"embed": embed_specs(cfg.vocab, cfg.d_model, cfg.tie_embeddings),
+            "blocks": blocks, "final_norm": rmsnorm_spec(cfg.d_model)}
+
+
+def _embed(params, cfg, flags, tokens):
+    return embed(params["embed"], tokens, scale=cfg.embed_scale,
+                 d=cfg.d_model).to(getattr(torch, flags.compute_dtype))
+
+
+def xlstm_cache_shapes(cfg: ModelConfig, batch: int, cache_len: int = 0):
+    return [mlstm_state_shapes(cfg, batch) if kind == "mlstm"
+            else slstm_state_shapes(cfg, batch) for kind in block_kinds(cfg)]
+
+
+def xlstm_prefill(params, cfg, flags, batch, cache_len: int = 0):
+    """The parallel forward for the last position's logits, with every
+    block's final state.  ``flags.analysis_unroll`` is accepted and
+    ignored.  Returns (logits [B, 1, V] float32, states)."""
+    x = _embed(params, cfg, flags, batch["tokens"])
+    states = []
+    for kind, p in zip(block_kinds(cfg), params["blocks"]):
+        fn = mlstm_block if kind == "mlstm" else slstm_block
+        x, st = fn(p, x, cfg)
+        states.append(st)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params["embed"], x[:, -1:, :]), states
+
+
+def xlstm_decode_step(params, cfg, flags, states, tokens, pos):
+    """One token per sequence.  tokens [B, 1]; ``pos`` is unused (the
+    state carries the position).  Returns (logits [B, 1, V] float32, the
+    new states)."""
+    del pos
+    x = _embed(params, cfg, flags, tokens)
+    new_states = []
+    for kind, p, st in zip(block_kinds(cfg), params["blocks"], states):
+        fn = mlstm_decode if kind == "mlstm" else slstm_decode
+        x, st2 = fn(p, x, cfg, st)
+        new_states.append(st2)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params["embed"], x), new_states

@@ -196,8 +196,8 @@ def test_cuda_tensors_without_a_card_raise_and_never_fall_back(monkeypatch):
 def test_three_phase_model_matches_jax(l, chunk, s0, dtype):
     """The kernel's decomposition (chunk states, state passing, chunk scan;
     ``ref.three_phase_scan_ref`` in float64) equals JAX's
-    ``chunked_linear_scan`` at xlstm-125m's mLSTM widths, N = 192 and P =
-    193, over a ragged L with and without an initial state."""
+    ``chunked_linear_scan`` at N = 192 and P = 193, over a ragged L with
+    and without an initial state."""
     arrs = _inputs(1, l, 2, 192, 193, seed=l + chunk)
     j, t = _both(arrs, dtype)
     init = (np.random.default_rng(chunk).normal(size=(1, 2, 192, 193))
@@ -218,6 +218,25 @@ def test_three_phase_model_matches_jax(l, chunk, s0, dtype):
         else torch.as_tensor(init).double())
     np.testing.assert_allclose(y.numpy(), ey.numpy(), rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose(s.numpy(), es.numpy(), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("s0", [False, True])
+def test_xlstm_widths_match_jax(s0):
+    """``chunked_linear_scan`` at xlstm-125m's mLSTM widths (N = hd = 384,
+    P = hd + 1 = 385: ``repro.models.xlstm._mdims``), over a ragged L of
+    two chunks and a part, with and without an initial state, against the
+    JAX ``chunked_linear_scan`` (y and the final state)."""
+    arrs = _inputs(1, 150, 2, 384, 385, seed=384 + s0)
+    j, t = _both(arrs, "float32")
+    init = (np.random.default_rng(385).normal(size=(1, 2, 384, 385))
+            .astype(np.float32) if s0 else None)
+    y, s = chunked_linear_scan(*t, chunk=64, initial_state=None if init is
+                               None else torch.as_tensor(init))
+    assert y.shape == (1, 150, 2, 385) and s.shape == (1, 2, 384, 385)
+    want_y, want_s = jax_scan(*j, chunk=64, initial_state=None if init is
+                              None else jnp.asarray(init))
+    np.testing.assert_allclose(_np(y), _np(want_y), **_tol("float32"))
+    np.testing.assert_allclose(_np(s), _np(want_s), **_tol("float32"))
 
 
 # The card's gate for the kernel against the plain version in float64
@@ -315,8 +334,9 @@ def _fake(*shapes, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("case", [
-    "zamba2-7b", "xlstm-125m", "xlstm-125m bf16", "chunk longer than L",
-    "N past shared memory", "chunk past shared memory", "too many chunks",
+    "zamba2-7b", "N 192", "N 192 bf16", "xlstm-125m", "xlstm-125m bf16",
+    "chunk longer than L", "N 400 plans", "chunk past shared memory",
+    "too many chunks",
     "chunk 0", "empty", "v shape", "q dtype", "initial_state shape",
     "cpu tensors"])
 def test_plan_checks_shapes_and_limits(case):
@@ -343,21 +363,37 @@ def test_plan_checks_shapes_and_limits(case):
         assert pl.chunks == 4 and max(pl.smem) <= tkernel.SMEM_LIMIT
         # The chunk states' scratch, dS_c then S_{c-1}: 29 MB.
         assert 4 * pl.b * pl.h * pl.chunks * pl.n * pl.p == 29_360_128
-    elif case.startswith("xlstm-125m"):
+    elif case.startswith("N 192"):
         dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
         pl = plan(*args(4, 1000, 4, 192, 193, dtype), chunk=256)
         assert (pl.n, pl.p, pl.bf16) == (192, 193, dtype == torch.bfloat16)
         assert pl.grids == ((16, 4, 12), (16, 37), (16, 4, 16))
         assert max(pl.smem) <= tkernel.SMEM_LIMIT
+    elif case.startswith("xlstm-125m"):
+        # The mLSTM's real widths: N = hd = 384, P = hd + 1 = 385.  N
+        # streams through the chunk scan in slabs: the shared bytes are
+        # N = 64's (zamba2-7b's).
+        bf16 = case.endswith("bf16")
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        pl = plan(*args(4, 1000, 4, 384, 385, dtype), chunk=256)
+        assert (pl.n, pl.p, pl.bf16) == (384, 385, bf16)
+        assert pl.grids == ((16, 4, 42), (16, 145), (16, 4, 28))
+        assert pl.smem == tkernel.smem_bytes(64, 256, bf16) == (
+            (39936, 74752) if bf16 else (76800, 109568))
+        assert max(pl.smem) <= tkernel.SMEM_LIMIT
     elif case == "chunk longer than L":
         pl = plan(*args(1, 30, 2, 8, 8), chunk=256)
         assert (pl.chunk, pl.chunks) == (30, 1)
+    elif case == "N 400 plans":
+        # N = 400 overflowed the chunk scan's shared memory while it kept
+        # the q tile over all N; streamed in slabs, it plans as N = 16 does.
+        pl = plan(*args(1, 64, 2, 400, 16), chunk=16)
+        assert pl.smem == plan(*args(1, 64, 2, 16, 16), chunk=16).smem
+        assert pl.grids == ((2, 4, 7), (2, 7), (2, 4, 1))
     else:
         a, kw, err, match = args(1, 64, 2, 16, 16), dict(chunk=16), \
             ValueError, None
-        if case == "N past shared memory":
-            a, match = args(1, 64, 2, 400, 16), "shared memory"
-        elif case == "chunk past shared memory":
+        if case == "chunk past shared memory":
             a, kw, match = args(1, 40000, 1, 16, 16), dict(chunk=20000), \
                 "shared memory"
         elif case == "too many chunks":
