@@ -36,7 +36,9 @@ Without it, phases one line each with its times, then two JSON lines:
    gh_ei on the forests and root posterior of a real tf-cnn selection
    step, flash_attention on a gemma2-9b prefill (S = T = 8192, local,
    global, causal and non-causal, bf16 and f32) and bf16 edge cases of
-   the tensor-core kernel (S and T off the tiles, D 112 and 100, MQA),
+   the tensor-core kernel (S and T off the tiles, D 112 and 100, MQA) and
+   float32 ones at the rest of the zoo's widths (D 192 with 128 heads,
+   DeepSeek-V3's MLA; D 80 non-causal, HuBERT's; D 192 windowed),
    decode_attention on gemma2-9b caches at B = 8 (global T = 8192 and
    local ring T = 4096, each full and filling, and the global one full
    with Gemma2's softcap; splits whose slots are all dead, every slot dead, a
@@ -120,9 +122,19 @@ Without it, phases one line each with its times, then two JSON lines:
    sLSTM blocks' share of a prefill) and gemma2-9b (B = 2, prompt 4608,
    past its 4096 window, gen 32; flash_attention 42 a prefill,
    decode_attention 42 x 31; layers 0 (local) and 1 (global) held in the
-   prefill and in the last decode step, softcapped), each profiled; last,
-   the five smoke configs of ``golden_zoo.json`` against the JAX
-   package's logits (atol 2e-4);
+   prefill and in the last decode step, softcapped), then the rest of the
+   zoo at full width: mixtral-8x22b at 4 of its 56 layers (B = 2, prompt
+   4608 past its 4096 window on every layer, so the 4096-slot ring
+   wraps, gen 32; flash_attention 4 a prefill, decode_attention 4 x 31),
+   deepseek-v3-671b at its 3 dense layers and 1 MoE layer (B = 2, prompt
+   2048, gen 32; MLA: flash_attention 4 at D 192 a prefill, latent
+   einsums in decode), qwen2-vl-2b (B = 4, prompt 1280 with 256 vision
+   tokens, gen 32; M-RoPE; flash_attention 28, decode_attention 28 x 31)
+   and hubert-xlarge's encoder prefill (B = 4 x 1000 frames, D 80,
+   non-causal; flash_attention 48), each arch's first layer held in the
+   prefill and in the last decode step after its weights are freed, each
+   profiled; last, the nine smoke configs of ``golden_zoo.json`` against
+   the JAX package's logits (atol 2e-4);
 11. extensions (run after phase 6): (a) every case of
    ``golden_extensions.json`` on the card,
    equal to the JAX package's outputs on the CPU: ``cartesian_gh``,
@@ -678,6 +690,18 @@ FLASH_EDGES = (
      None, 30.0),
     ("MQA KH 1, D 128, S = T = 777, causal, window 200", 8, 1, 777, 777, 128,
      True, 200, None))
+# flash_attention in float32 at the widths the rest of the zoo gives the
+# CUDA-core kernel: DeepSeek-V3's MLA prefill (q/k 128 + 64 = 192 wide, v
+# zero-padded from 128 to 192, 128 heads; src/repro/models/mla.py:70-73),
+# the DP = 192 instantiation, and HuBERT's (D 80, non-causal), which runs
+# DP = 128 with 48 lanes of the tile idle; a ragged, windowed D 192 case.
+FLASH_F32_EDGES = (
+    ("deepseek-v3 MLA: D 192 (v zero-padded from 128), H = KH = 128, "
+     "S = T = 2048, causal", 128, 128, 2048, 2048, 192, True, None, None),
+    ("hubert-xlarge: D 80, H = KH = 16, S = T = 1000, non-causal", 16, 16,
+     1000, 1000, 80, False, None, None),
+    ("D 192, GQA 4, S = T = 777, causal, window 300", 8, 2, 777, 777, 192,
+     True, 300, None))
 # zamba2-7b's decode shape (B 4, KH 32, G 1, D 112, f32) through the
 # [B, T, KH, D] ring cache's transposed view, as the model calls it.
 ZAMBA_DECODE = dict(b=4, kh=32, t=1032, d=112, pos=1031)
@@ -934,9 +958,10 @@ def _forest_cases(device, tf_job):
 
 
 def _attention_cases(device):
-    """flash_attention on a gemma2-9b prefill and edge cases of the
-    tensor-core kernel; decode_attention on gemma2-9b caches and at
-    zamba2-7b's decode shape."""
+    """flash_attention on a gemma2-9b prefill, edge cases of the
+    tensor-core kernel and the float32 kernel at the MLA's and HuBERT's
+    head dims; decode_attention on gemma2-9b caches and at zamba2-7b's
+    decode shape."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.decode_attention import kernel as da
@@ -986,14 +1011,21 @@ def _attention_cases(device):
                 plain_reps=3, extra=dict(B=1, H=h, KH=kh, S=s, T=s, D=d,
                                          live_pairs_per_head=pairs)))
 
-    for label, h_, kh_, s_, t_, d_, causal, window, softcap in FLASH_EDGES:
+    edges = [(e, torch.bfloat16, BF16_TOL, BF16_OPS_PER_S)
+             for e in FLASH_EDGES]
+    edges += [(e, torch.float32, (2e-5, 2e-5), FP32_OPS_PER_S)
+              for e in FLASH_F32_EDGES]
+    for edge, dtype, tol, peak in edges:
+        label, h_, kh_, s_, t_, d_, causal, window, softcap = edge
         gq = torch.Generator(device=device).manual_seed(s_ + t_ + d_)
         q = torch.randn((1, h_, s_, d_), generator=gq, device=device
-                        ).to(torch.bfloat16)
+                        ).to(dtype)
         k = torch.randn((1, kh_, t_, d_), generator=gq, device=device
-                        ).to(torch.bfloat16)
+                        ).to(dtype)
         v = torch.randn((1, kh_, t_, d_), generator=gq, device=device
-                        ).to(torch.bfloat16)
+                        ).to(dtype)
+        if "zero-padded" in label:
+            v[..., 128:] = 0
         kw = dict(causal=causal, window=window, softcap=softcap,
                   scale=d_ ** -0.5)
         pairs = _live_pairs(s_, t_, causal, window)
@@ -1003,15 +1035,15 @@ def _attention_cases(device):
                 q, k, v, is_causal=kw["causal"], scale=kw["scale"],
                 enable_gqa=True))
         cases.append(OpCase(
-            "flash_attention", f"{label}, bfloat16",
+            "flash_attention", f"{label}, {str(dtype)[6:]}",
             run=lambda q=q, k=k, v=v, kw=kw: kernels.flash_attention(
                 q, k, v, **kw),
             plain=lambda q=q, k=k, v=v, kw=kw: kernels.flash_attention(
                 q, k, v, **kw, force="ref"),
             prep=lambda q=q, k=k, v=v, kw=kw: fa.prepare(q, k, v, **kw),
-            launch=fa.launch, compare=_close(*BF16_TOL),
+            launch=fa.launch, compare=_close(*tol),
             nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
-            ops=4 * d_ * h_ * pairs, peak=BF16_OPS_PER_S, library=lib,
+            ops=4 * d_ * h_ * pairs, peak=peak, library=lib,
             reps=20, plain_reps=3, extra=dict(B=1, H=h_, KH=kh_, S=s_, T=t_,
                                               D=d_,
                                               live_pairs_per_head=pairs)))
@@ -2034,11 +2066,27 @@ class _Capture:
         return run
 
 
-def golden_logits(cfg, weights, tokens, prompt, steps, device):
+def prompt_batch(batch, prompt):
+    """The prefill's inputs from a family's batch of ``prompt`` + steps
+    positions: the first ``prompt`` tokens, frames, mask entries and
+    M-RoPE ids, the vision prefix whole, no targets."""
+    out = {}
+    for k, v in batch.items():
+        if k == "targets":
+            continue
+        out[k] = (v if k == "vision_embeds" else
+                  v[:, :, :prompt] if k == "positions" else v[:, :prompt])
+    return out
+
+
+def golden_logits(cfg, weights, batch, prompt, steps, device):
     """A smoke model's prefill logits and ``steps`` teacher-forced decode
     logits [steps + 1, B, V] (float64, on the host), computed on
-    ``device`` from numpy weights: what the golden files hold, and what the
-    tests check on the CPU."""
+    ``device`` from numpy weights and a family's numpy ``batch`` (tokens;
+    a VLM's vision prefix and M-RoPE ids; an encoder's frames and mask):
+    what the golden files hold, and what the tests check on the CPU.  An
+    encoder has no decode step: its prefill's logits of every frame [1, B,
+    prompt, V]."""
     import numpy as np
     import torch
     from repro_torch import convert
@@ -2048,9 +2096,13 @@ def golden_logits(cfg, weights, tokens, prompt, steps, device):
     flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
                          compute_dtype="float32")
     params = convert.tree_from_numpy(weights, device)
-    toks = torch.as_tensor(np.asarray(tokens), device=device)
-    logits, caches = model.prefill(params, {"tokens": toks[:, :prompt]},
-                                   flags, prompt + steps)
+    pre = convert.tree_from_numpy(
+        {k: np.asarray(v) for k, v in prompt_batch(batch, prompt).items()},
+        device)
+    logits, caches = model.prefill(params, pre, flags, prompt + steps)
+    if cfg.is_encoder:
+        return logits[None].cpu().double()
+    toks = torch.as_tensor(np.asarray(batch["tokens"]), device=device)
     out = [logits[:, 0]]
     for i in range(steps):
         pos = prompt + i
@@ -2060,10 +2112,29 @@ def golden_logits(cfg, weights, tokens, prompt, steps, device):
     return torch.stack(out).cpu().double()
 
 
+def golden_batch(cfg, entry, meta):
+    """The inputs of a golden entry: its tokens, or for the audio and VLM
+    families ``make_batch``'s arrays at the file's seed (the entry keeps
+    their tokens or mask, which must match)."""
+    import numpy as np
+    from repro_torch.data.pipeline import make_batch
+
+    if cfg.family not in ("audio", "vlm"):
+        return {"tokens": np.asarray(entry["tokens"])}
+    batch = make_batch(cfg, "serve", meta["batch"],
+                       meta["prompt_len"] + meta["steps"],
+                       seed=meta["data_seed"], step=0)
+    key = "mask" if cfg.family == "audio" else "tokens"
+    if not np.array_equal(batch[key], np.asarray(entry[key])):
+        raise AssertionError(f"{cfg.name}: make_batch's {key} differ from "
+                             f"the golden file's")
+    return batch
+
+
 def _golden_check(golden_file, arch, entry, meta, device):
     """One arch's smoke config through the kernels, teacher-forced,
-    against the JAX package's tokens and logits in ``entry``, at atol 2e-4
-    (``meta``: the file's seed, prompt length and steps)."""
+    against the JAX package's inputs and logits in ``entry``, at atol 2e-4
+    (``meta``: the file's seeds, batch, prompt length and steps)."""
     import torch
     from repro_torch import convert
     from repro_torch.configs import get_smoke_config
@@ -2072,15 +2143,17 @@ def _golden_check(golden_file, arch, entry, meta, device):
     cfg = get_smoke_config(arch)
     weights = convert.numpy_params(build_model(cfg).specs(),
                                    meta["param_seed"])
-    got = golden_logits(cfg, weights, entry["tokens"], meta["prompt_len"],
-                        meta["steps"], device)
+    got = golden_logits(cfg, weights, golden_batch(cfg, entry, meta),
+                        meta["prompt_len"], meta["steps"], device)
     want = torch.tensor(entry["logits"], dtype=torch.float64)
     err = (got - want).abs().max().item()
     _line("model", golden=golden_file.name, config=cfg.name,
-          steps=meta["steps"] + 1, max_abs_err=err, atol=2e-4)
-    if not err <= 2e-4:
+          steps=1 if cfg.is_encoder else meta["steps"] + 1,
+          max_abs_err=err, atol=2e-4)
+    if got.shape != want.shape or not err <= 2e-4:
         raise AssertionError(f"{cfg.name} on the card differs from the JAX "
-                             f"package's logits by {err} (atol 2e-4)")
+                             f"package's logits by {err} (atol 2e-4; shapes "
+                             f"{tuple(got.shape)}, {tuple(want.shape)})")
 
 
 def _zamba_golden(device):
@@ -2092,9 +2165,9 @@ def _zamba_golden(device):
 
 
 def _zoo_golden(device):
-    """Each smoke config of ``golden_zoo.json`` (xlstm-125m and the dense
-    archs) through the kernels, teacher-forced, against the JAX package's
-    logits."""
+    """Each smoke config of ``golden_zoo.json`` (every arch but zamba2-7b)
+    through the kernels, teacher-forced (an encoder's prefill alone),
+    against the JAX package's logits."""
     golden = json.loads(GOLDEN_ZOO.read_text())
     for arch, entry in golden["archs"].items():
         _golden_check(GOLDEN_ZOO, arch, entry, golden, device)
@@ -2108,8 +2181,9 @@ def _model_ops():
             "decode_attention": da_ops}
 
 
-def _serve(device, model, params, flags, tokens, prompt, gen, caps, want):
-    """Serve ``tokens`` through ``repro_torch.launch.serve.generate``:
+def _serve(device, model, params, flags, batch, prompt, gen, caps, want):
+    """Serve ``batch`` (the family's inputs on the card) through
+    ``repro_torch.launch.serve.generate``:
     once with every launch count at 0 and the model ops' kernels behind
     ``caps`` (read after), then ``SERVE_RUNS - 1`` more times for the
     spread of the two rates.  Fails unless the launches equal ``want``
@@ -2120,7 +2194,7 @@ def _serve(device, model, params, flags, tokens, prompt, gen, caps, want):
     from repro_torch.launch.serve import generate
 
     cfg = model.cfg
-    batch = tokens.shape[0]
+    n_seq = batch["tokens"].shape[0]
     mods = _model_ops()
     counters = _all_counters()
     for fn in counters.values():
@@ -2129,9 +2203,8 @@ def _serve(device, model, params, flags, tokens, prompt, gen, caps, want):
         mods[name]._kernel = cap
     try:
         with _HostClock() as clock:
-            out, tps, prefill_s = generate(model, params, flags,
-                                           {"tokens": tokens}, prompt, gen,
-                                           prompt + gen)
+            out, tps, prefill_s = generate(model, params, flags, batch,
+                                           prompt, gen, prompt + gen)
         torch.cuda.synchronize(device)
     finally:
         for name, cap in caps.items():
@@ -2147,7 +2220,7 @@ def _serve(device, model, params, flags, tokens, prompt, gen, caps, want):
     if launches != want:
         raise AssertionError(f"launches on the {cfg.name} serving path "
                              f"{launches}, expected {want}")
-    if tuple(host.shape) != (batch, gen) or not (
+    if tuple(host.shape) != (n_seq, gen) or not (
             (host >= 0) & (host < cfg.vocab)).all():
         raise AssertionError(f"generated tokens {tuple(host.shape)} out of "
                              f"range")
@@ -2155,9 +2228,8 @@ def _serve(device, model, params, flags, tokens, prompt, gen, caps, want):
     prefill_runs, tps_runs = [prefill_s], [tps]
     for run in range(1, SERVE_RUNS):
         with _HostClock() as clock:
-            _, tps_r, prefill_r = generate(model, params, flags,
-                                           {"tokens": tokens}, prompt, gen,
-                                           prompt + gen)
+            _, tps_r, prefill_r = generate(model, params, flags, batch,
+                                           prompt, gen, prompt + gen)
         prefill_runs.append(prefill_r)
         tps_runs.append(tps_r)
         _line("model", arch=cfg.name,
@@ -2169,7 +2241,7 @@ def _serve(device, model, params, flags, tokens, prompt, gen, caps, want):
     _line("model", arch=cfg.name, runs=SERVE_RUNS,
           prefill_s_median=f"{prefill_med:.4f}",
           decode_tokens_per_s_median=f"{tps_med:.1f}",
-          decode_step_s_median=f"{batch / tps_med:.4f}")
+          decode_step_s_median=f"{n_seq / tps_med:.4f}")
     return launches, prefill_runs, tps_runs, peak_gb, prefill_med, tps_med
 
 
@@ -2315,28 +2387,33 @@ def _check_decode(calls, report, label, device):
         del prep, o, keep, want_o
 
 
-def _profile_serving(model, params, flags, tokens, prompt, gen, prefill_med,
+def _profile_serving(model, params, flags, batch, prompt, gen, prefill_med,
                      tps_med):
-    """Where the time goes: one prefill and one decode step, profiled."""
+    """Where the time goes: one prefill and one decode step (an encoder:
+    the prefill alone), profiled."""
     import torch
     state = {}
 
     def prefill():
         state["logits"], state["caches"] = model.prefill(
-            params, {"tokens": tokens}, flags, prompt + gen)
+            params, batch, flags, prompt + gen)
 
     _profile(f"{model.cfg.name} prefill", prefill, prefill_med)
+    if model.cfg.is_encoder:
+        state.clear()
+        return
     nxt = torch.argmax(state.pop("logits"), dim=-1)
     _profile(f"{model.cfg.name} decode step",
              lambda: model.decode(params, state["caches"], nxt, prompt,
-                                  flags), tokens.shape[0] / tps_med)
+                                  flags), nxt.shape[0] / tps_med)
     state.clear()
 
 
-def _init_model(device, cfg, batch, prompt, gen):
+def _init_model(device, cfg, batch, prompt, gen, reduced=None):
     """The model, its float32 weights drawn on the card from a seeded
-    generator, and ``make_batch``'s prompts; the peak memory counted from
-    before the draw."""
+    generator, and ``make_batch``'s inputs of the family on the card (no
+    targets); the peak memory counted from before the draw.  ``reduced``
+    names the config's cuts for the model line."""
     import torch
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models import build_model
@@ -2346,13 +2423,16 @@ def _init_model(device, cfg, batch, prompt, gen):
     torch.cuda.reset_peak_memory_stats(device)
     params = model.init(torch.Generator(device=device).manual_seed(0),
                         torch.float32, device)
-    toks = make_batch(cfg, "serve", batch, prompt, seed=0, step=0)["tokens"]
-    tokens = torch.as_tensor(toks, device=device)
+    host = make_batch(cfg, "serve", batch, prompt, seed=0, step=0)
+    inputs = {k: torch.as_tensor(v, device=device) for k, v in host.items()
+              if k != "targets"}
     torch.cuda.synchronize(device)
+    extra = {} if reduced is None else dict(reduced=json.dumps(reduced))
     _line("model", arch=cfg.name, params=model.n_params(),
           layers=cfg.n_layers, d_model=cfg.d_model, batch=batch,
-          prompt=prompt, gen=gen, init_s=f"{time.perf_counter() - t0:.1f}")
-    return model, params, tokens
+          prompt=prompt, gen=gen, inputs=",".join(inputs), **extra,
+          init_s=f"{time.perf_counter() - t0:.1f}")
+    return model, params, inputs
 
 
 def phase_model(device, cfg=None, batch=ZAMBA["batch"],
@@ -2372,7 +2452,7 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
     cfg = cfg or get_config(ZAMBA["arch"])
     flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
                          compute_dtype="float32")
-    model, params, tokens = _init_model(device, cfg, batch, prompt, gen)
+    model, params, inputs = _init_model(device, cfg, batch, prompt, gen)
     n_scan = cfg.n_layers
     n_sites = cfg.n_layers // cfg.attn_every
     caps = {"ssm_scan": _Capture(sk, "ssm_scan_cuda",
@@ -2387,7 +2467,7 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
             "decode_attention": n_sites * (gen - 1), "select_step": 0,
             "tree_predict": 0, "gh_ei": 0}
     launches, prefill_runs, tps_runs, peak_gb, prefill_med, tps_med = \
-        _serve(device, model, params, flags, tokens, prompt, gen, caps, want)
+        _serve(device, model, params, flags, inputs, prompt, gen, caps, want)
 
     rows, failures = [], []
     report = _reporter(rows, failures, launches)
@@ -2402,9 +2482,9 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
                   lambda i: f"{cfg.name} last step, site {n_sites - 1}",
                   device)
     caps.clear()
-    _profile_serving(model, params, flags, tokens, prompt, gen, prefill_med,
+    _profile_serving(model, params, flags, inputs, prompt, gen, prefill_med,
                      tps_med)
-    del params, tokens
+    del params, inputs
     torch.cuda.empty_cache()
     _zamba_golden(device)
     _line("model", phase_s=f"{time.perf_counter() - t0:.1f}")
@@ -2418,15 +2498,44 @@ def phase_model(device, cfg=None, batch=ZAMBA["batch"],
 
 
 # --------------------------------------------------------------------------- #
-# Phase 10 (zoo): xlstm-125m and gemma2-9b served at full width and depth
+# Phase 10 (zoo): the rest of the model zoo served at full width
 # --------------------------------------------------------------------------- #
+# ``layers`` cuts the depth (listed as ``reduced`` in the model line): the
+# two MoE archs do not fit one card at full depth.
 ZOO = (dict(arch="xlstm-125m", batch=4, prompt=1000, gen=32),
        # Past the 4096 window: the local layers' window masks in the
        # prefill and in decode.
-       dict(arch="gemma2-9b", batch=2, prompt=4608, gen=32))
+       dict(arch="gemma2-9b", batch=2, prompt=4608, gen=32),
+       # The window on every layer caps the ring at 4096 slots: past it,
+       # the ring wraps in the prefill's ring_place and in decode.
+       dict(arch="mixtral-8x22b", batch=2, prompt=4608, gen=32, layers=4),
+       # The 3 dense layers and 1 of the 58 MoE layers; two MoE groups of
+       # 2048 tokens.  MLA decodes in latent einsums (no kernel).
+       dict(arch="deepseek-v3-671b", batch=2, prompt=2048, gen=32,
+            layers=4),
+       # 256 vision tokens and 1024 text, M-RoPE ids.
+       dict(arch="qwen2-vl-2b", batch=4, prompt=1280, gen=32),
+       # 20 s of audio at the 20 ms frame rate; an encoder: prefill only.
+       dict(arch="hubert-xlarge", batch=4, prompt=1000, gen=0))
 
 
-def _slstm_share(device, model, params, flags, tokens):
+def _zoo_config(spec):
+    """The arch's full config, its depth cut to ``spec["layers"]`` where
+    the spec says; returns (config, the cut or None)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(spec["arch"])
+    if "layers" not in spec:
+        return cfg, None
+    gb = build_model(cfg).n_params() * 4 / 1e9
+    reduced = {"n_layers": [cfg.n_layers, spec["layers"]],
+               "why": f"{gb:.1f} GB of float32 weights at full depth"}
+    return dataclasses.replace(cfg, n_layers=spec["layers"]), reduced
+
+
+def _slstm_share(device, model, params, flags, inputs):
     """One xLSTM prefill with its sLSTM blocks timed (host clock around
     each, synchronized): their seconds and share of the prefill's."""
     import torch
@@ -2446,7 +2555,7 @@ def _slstm_share(device, model, params, flags, tokens):
     try:
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        model.prefill(params, {"tokens": tokens}, flags, 0)
+        model.prefill(params, inputs, flags, 0)
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
     finally:
@@ -2456,24 +2565,89 @@ def _slstm_share(device, model, params, flags, tokens):
           slstm_share=f"{sum(spent) / wall:.3f}")
 
 
-def _serve_zoo(device, spec, rows, failures, by_path):
-    """One arch of ``ZOO``: served with the launch counts at 0, its
-    kernels held against their plain versions on the captured calls (one
-    mLSTM block; one local and one global Gemma2 layer), then profiled."""
+def _serve_encoder(device, model, params, flags, inputs, caps, want):
+    """An encoder served through ``train.step.make_serve_step``'s prefill
+    (a unit for every frame, no cache): once with every launch count at 0
+    and the model ops' kernels behind ``caps``, then ``SERVE_RUNS - 1``
+    more times.  Fails unless the launches equal ``want`` and the units are
+    in range.  Returns (launches, peak GB, the median prefill seconds)."""
+    import numpy as np
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.train.step import make_serve_step
+
+    cfg = model.cfg
+    prefill, _ = make_serve_step(model, flags)
+    mods = _model_ops()
+    counters = _all_counters()
+    runs = []
+    for run in range(SERVE_RUNS):
+        if run == 0:
+            for fn in counters.values():
+                fn.launches = 0
+            for name, cap in caps.items():
+                mods[name]._kernel = cap
+        try:
+            with _HostClock() as clock:
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                out, caches = prefill(params, inputs, 0)
+                torch.cuda.synchronize(device)
+                runs.append(time.perf_counter() - t0)
+        finally:
+            for name, cap in caps.items():
+                mods[name]._kernel = cap.module
+        if run == 0:
+            launches = {name: fn.launches for name, fn in counters.items()}
+            host = out.cpu()
+            _line("model", arch=cfg.name,
+                  drive="repro_torch.train.step.make_serve_step prefill",
+                  prefill_s=f"{runs[-1]:.4f}",
+                  peak_gb=f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}",
+                  **clock.fields(),
+                  launches=json.dumps(launches, separators=(",", ":")),
+                  sample=host[0, :10].tolist())
+            if launches != want:
+                raise AssertionError(f"launches on the {cfg.name} serving "
+                                     f"path {launches}, expected {want}")
+            if caches != {} or tuple(host.shape) != tuple(
+                    inputs["features"].shape[:2]) or not (
+                    (host >= 0) & (host < cfg.vocab)).all():
+                raise AssertionError(f"{cfg.name}: the encoder's units "
+                                     f"{tuple(host.shape)} out of range")
+        else:
+            _line("model", arch=cfg.name,
+                  drive="repro_torch.train.step.make_serve_step prefill",
+                  run=run, prefill_s=f"{runs[-1]:.4f}", **clock.fields())
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    med = float(np.median(runs))
+    _line("model", arch=cfg.name, runs=SERVE_RUNS,
+          prefill_s_median=f"{med:.4f}")
+    return launches, peak_gb, med
+
+
+def _serve_zoo(device, spec, rows, failures, by_path):
+    """One arch of ``ZOO``: served with the launch counts at 0, profiled,
+    its weights freed, then its kernels held against their plain versions
+    on the captured calls (one mLSTM block; the first layer's prefill and
+    the last decode step's first layer, and for Gemma2 the second, global,
+    layer too)."""
+    import torch
     from repro_torch.kernels.decode_attention import kernel as da
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssm_scan import kernel as sk
     from repro_torch.models import RuntimeFlags
     from repro_torch.models.xlstm_model import block_kinds
 
-    cfg = get_config(spec["arch"])
+    cfg, reduced = _zoo_config(spec)
     batch, prompt, gen = spec["batch"], spec["prompt"], spec["gen"]
     flags = RuntimeFlags(attn_impl="naive", loss_chunks=1,
                          compute_dtype="float32")
-    model, params, tokens = _init_model(device, cfg, batch, prompt, gen)
+    model, params, inputs = _init_model(device, cfg, batch, prompt, gen,
+                                        reduced)
     want = dict.fromkeys(_all_counters(), 0)
+    # Layers whose calls are held: Gemma2's first pair (local, global).
+    held = 2 if cfg.alt_window is not None else 1
+    decodes = cfg.family != "ssm" and not cfg.mla and not cfg.is_encoder
     if cfg.family == "ssm":
         n_scan = block_kinds(cfg).count("mlstm")   # a prefill; 0 a decode
         want["ssm_scan"] = n_scan
@@ -2481,49 +2655,66 @@ def _serve_zoo(device, spec, rows, failures, by_path):
     else:
         n = cfg.n_layers
         want["flash_attention"] = n
-        want["decode_attention"] = n * (gen - 1)
-        # Layers 0 (local) and 1 (global) of the prefill and of the last
-        # decode step.
-        last = n * (gen - 2)
         caps = {"flash_attention": _Capture(fa, "flash_attention_cuda",
-                                            lambda i: i < 2),
-                "decode_attention": _Capture(
-                    da, "decode_attention_cuda",
-                    lambda i: i in (last, last + 1))}
-    launches, _, _, _, prefill_med, tps_med = _serve(
-        device, model, params, flags, tokens, prompt, gen, caps, want)
+                                            lambda i: i < held)}
+        if decodes:
+            want["decode_attention"] = n * (gen - 1)
+            last = n * (gen - 2)
+            caps["decode_attention"] = _Capture(
+                da, "decode_attention_cuda",
+                lambda i: last <= i < last + held)
+    tps_med = None
+    if cfg.is_encoder:
+        launches, _, prefill_med = _serve_encoder(
+            device, model, params, flags, inputs, caps, want)
+    else:
+        launches, _, _, _, prefill_med, tps_med = _serve(
+            device, model, params, flags, inputs, prompt, gen, caps, want)
     by_path[cfg.name] = launches
+    if cfg.family == "ssm":
+        _slstm_share(device, model, params, flags, inputs)
+    _profile_serving(model, params, flags, inputs, prompt, gen, prefill_med,
+                     tps_med)
+    # The plain versions below materialise every score (8 GB at
+    # mixtral-8x22b's prefill): the weights go first.
+    del model, params, inputs
+    torch.cuda.empty_cache()
     report = _reporter(rows, failures, launches)
-    kind = lambda i: "local" if cfg.layer_window(i % cfg.n_layers) else \
-        "global"
+
+    def kind(i):
+        win = cfg.layer_window(i % cfg.n_layers)
+        if cfg.alt_window is not None:
+            return " (local)" if win else " (global)"
+        return f" (window {win})" if win else ""
+
     if cfg.family == "ssm":
         _check_scan(caps["ssm_scan"].calls, report,
                     min(cfg.ssm_chunk, prompt),
                     lambda i: f"{cfg.name} mLSTM block {i}", device)
-        _slstm_share(device, model, params, flags, tokens)
     else:
         _check_flash(caps["flash_attention"].calls, report,
-                     lambda i: f"{cfg.name} layer {i} ({kind(i)}) prefill",
+                     lambda i: f"{cfg.name} layer {i}{kind(i)} prefill",
                      device)
-        _check_decode(caps["decode_attention"].calls, report,
-                      lambda i: f"{cfg.name} last step, layer {i - last} "
-                                f"({kind(i)})", device)
+        if decodes:
+            _check_decode(caps["decode_attention"].calls, report,
+                          lambda i: f"{cfg.name} last step, layer "
+                                    f"{i - last}{kind(i)}", device)
     caps.clear()
-    _profile_serving(model, params, flags, tokens, prompt, gen, prefill_med,
-                     tps_med)
-    del model, params, tokens
     torch.cuda.empty_cache()
 
 
 def phase_zoo(device):
-    """Serve xlstm-125m and gemma2-9b at full width and depth (``ZOO``),
-    each with its kernels held against their plain versions, then the
-    smoke configs of ``golden_zoo.json`` against the JAX package's logits.
-    Returns (rows, launches by arch)."""
+    """Serve the archs of ``ZOO`` at full width (the MoE archs at cut
+    depth), each with its kernels held against their plain versions, then
+    the smoke configs of ``golden_zoo.json`` against the JAX package's
+    logits.  Returns (rows, launches by arch)."""
     t0 = time.perf_counter()
     rows, failures, by_path = [], [], {}
     for spec in ZOO:
+        t1 = time.perf_counter()
         _serve_zoo(device, spec, rows, failures, by_path)
+        _line("model", arch=spec["arch"],
+              arch_s=f"{time.perf_counter() - t1:.1f}")
     _zoo_golden(device)
     _line("model", zoo_s=f"{time.perf_counter() - t0:.1f}")
     if failures:
@@ -2974,8 +3165,8 @@ def main(argv=None) -> int:
         help="comma-separated kernels of phase ops (tree_predict, gh_ei, "
              "flash_attention, decode_attention, ssm_scan), masked_argmax, "
              "the phase batched, service (phase batched's tf-cnn runs, "
-             "then phase service), extensions and zoo (xlstm-125m and "
-             "gemma2-9b served, and the zoo's golden logits): build, run "
+             "then phase service), extensions and zoo (the archs of ZOO "
+             "served, and the zoo's golden logits): build, run "
              "only their checks and times, and print no result line (a "
              "measurement run, not the smoke)")
     args = parser.parse_args(argv)

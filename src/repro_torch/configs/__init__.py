@@ -2,9 +2,8 @@
 
 ``get_config(arch_id)`` returns the full published config and
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests,
-as ``repro.configs`` does.  ``ARCHS`` lists every arch of the reference;
-only the archs whose family the port serves (hybrid, ssm, dense) have a
-module here, and the others raise ``NotImplementedError`` (ROADMAP A11).
+as ``repro.configs`` does.  ``ARCHS`` lists every arch of the reference,
+and each has a module here (``PORTED``).
 """
 
 from __future__ import annotations
@@ -18,17 +17,12 @@ ARCHS = [
     "hubert-xlarge", "deepseek-v3-671b", "mixtral-8x22b", "zamba2-7b",
     "qwen2-vl-2b",
 ]
-PORTED = ("zamba2-7b", "xlstm-125m", "gemma2-9b", "gemma-2b",
-          "deepseek-7b", "granite-3-2b")
+PORTED = list(ARCHS)
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP A11); the port "
-            f"serves {list(PORTED)}")
     return importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
 

@@ -5,12 +5,16 @@
       --batch 4 --prompt-len 1000 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \\
+      --smoke --device cpu --prompt-len 40 --gen 8
 
 Runs on the card unless ``--device cpu`` is given.  Parameters are drawn
 on the device from a seeded ``torch.Generator`` (float32, as the reference
 serves).  The kernels are built before the timed run.  Prints the
 reference's JSON keys, plus the device and the time of the (first)
-prefill.
+prefill.  The whole batch of the arch's family goes to the prefill (a
+VLM's vision prefix and M-RoPE ids with its tokens); an encoder-only arch
+(HuBERT) has no decode step and is refused, as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -83,7 +87,8 @@ def main(argv=None):
                         torch.float32, dev)
     batch = make_batch(cfg, "serve", args.batch, args.prompt_len, seed=0,
                        step=0)
-    batch = {"tokens": torch.as_tensor(batch["tokens"], device=dev)}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+             if k != "targets"}
     cache_len = args.prompt_len + args.gen
     toks, tps, prefill_s = generate(model, params, flags, batch,
                                     args.prompt_len, args.gen, cache_len)

@@ -1,5 +1,5 @@
 """Model API: family dispatch behind one namespace — ``repro.models.api``
-for the families the port serves.
+for every family of the reference.
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods close over the
 architecture config; ``RuntimeFlags`` stay explicit arguments, as in the
@@ -21,11 +21,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import count_params, init_params
 
 __all__ = ["Model", "build_model"]
-
-# The ROADMAP item that ports each family the port does not serve yet.
-_TODO = {"moe": "A11 (MoE/MLA family)", "vlm": "A11 (VLM family)",
-         "audio": "A11 (audio family)"}
-
 
 @dataclasses.dataclass(frozen=True)
 class Model:
@@ -55,7 +50,7 @@ def build_model(cfg: ModelConfig) -> Model:
                                                            pos),
             cache_shapes=lambda b, cl: zb.zamba_cache_shapes(cfg, b, cl),
         )
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         return Model(
             cfg=cfg,
             specs=lambda: tf.transformer_specs(cfg),
@@ -75,7 +70,4 @@ def build_model(cfg: ModelConfig) -> Model:
                                                                 t, pos),
             cache_shapes=lambda b, cl: xm.xlstm_cache_shapes(cfg, b, cl),
         )
-    if cfg.family in _TODO:
-        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "
-                                  f"not ported yet: ROADMAP {_TODO[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -21,8 +21,9 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG
 
-__all__ = ["attend", "cache_slot_positions", "write_kv", "ring_place"]
+__all__ = ["attend", "cache_slot_positions", "write_kv", "ring_place", "NEG"]
 
 
 def attend(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -60,12 +61,16 @@ def attend(q, k, v, *, causal: bool = True, window: int | None = None,
     return o[:, None]
 
 
-def cache_slot_positions(pos, cache_len: int):
+def cache_slot_positions(pos, cache_len: int, device=None):
     """Absolute position held by each ring slot after writing ``pos``:
     slot i holds ``pos - ((pos - i) mod cache_len)`` (floor modulo); a
     negative position is a slot never written.  Returns (k_pos [T],
-    k_valid [T])."""
-    i = torch.arange(cache_len)
+    k_valid [T]) on ``device``: the caller passes its cache's, so that a
+    decode step on the card copies nothing from the host (default: a
+    tensor ``pos``'s device, else the CPU)."""
+    if device is None:
+        device = pos.device if torch.is_tensor(pos) else "cpu"
+    i = torch.arange(cache_len, device=device)
     p = pos - torch.remainder(pos - i, cache_len)
     return p, p >= 0
 

@@ -11,13 +11,15 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import spec
 
-__all__ = ["rmsnorm_spec", "rmsnorm", "mlp_specs", "mlp", "rope",
-           "embed_specs", "embed", "unembed", "causal_conv1d"]
+__all__ = ["rmsnorm_spec", "rmsnorm", "layernorm_spec", "layernorm",
+           "mlp_specs", "mlp", "rope", "mrope", "embed_specs", "embed",
+           "unembed", "causal_conv1d"]
 
 
 def rmsnorm_spec(d: int, layers: int | None = None):
@@ -35,10 +37,34 @@ def rmsnorm(w, x, eps: float = 1e-6):
     return ((1.0 + w.to(torch.float32)) * x).to(dt)
 
 
-def mlp_specs(d: int, ff: int, act: str, layers: int | None = None):
+def layernorm_spec(d: int, layers: int | None = None):
+    shape, axes = (d,), ("embed",)
+    if layers is not None:
+        shape, axes = (layers, d), ("layers", "embed")
+    return {"w": spec(shape, axes, init="zeros"),
+            "b": spec(shape, axes, init="zeros")}
+
+
+def layernorm(p, x, eps: float = 1e-6):
+    """LayerNorm with a ``(1 + w)`` scale and a bias, float32 inside."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return ((1.0 + p["w"]) * y + p["b"]).to(dt)
+
+
+def mlp_specs(d: int, ff: int, act: str, layers: int | None = None,
+              experts: int | None = None):
+    """The (gated) MLP's weights; ``experts`` adds an experts axis after
+    the layers axis (the MoE's expert stacks)."""
     lead_shape, lead_axes = (), ()
     if layers is not None:
         lead_shape, lead_axes = (layers,), ("layers",)
+    if experts is not None:
+        lead_shape, lead_axes = lead_shape + (experts,), lead_axes + (
+            "experts",)
     p = {"up": spec(lead_shape + (d, ff), lead_axes + ("embed", "ffn")),
          "down": spec(lead_shape + (ff, d), lead_axes + ("ffn", "embed"))}
     if act in ("swiglu", "geglu"):
@@ -63,19 +89,48 @@ def mlp(p, x, act: str):
     return h @ p["down"]
 
 
-def rope(x, positions, theta: float = 10000.0):
-    """Split-half RoPE.  x [B, S, H, D]; positions [B, S] (or [S])."""
-    if positions.dim() == 1:
-        positions = positions[None, :]
-    half = x.shape[-1] // 2
+def _rope_angles(positions, dim: int, theta: float, device):
+    """positions [...] -> angles [..., dim // 2] (float32)."""
+    half = dim // 2
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
-    ang = positions.to(device=x.device, dtype=torch.float32)[..., None] * freq
+                                   device=device) / half)
+    return positions.to(device=device, dtype=torch.float32)[..., None] * freq
+
+
+def _apply_angles(x, ang):
+    """x [..., S, H, D]; ang [..., S, D // 2], broadcast over the heads."""
+    half = x.shape[-1] // 2
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """Split-half RoPE.  x [B, S, H, D]; positions [B, S] (or [S])."""
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    return _apply_angles(x, _rope_angles(positions, x.shape[-1], theta,
+                                         x.device))
+
+
+def mrope(x, positions, sections, theta: float = 10000.0):
+    """Qwen2-VL's multimodal RoPE.  x [B, S, H, D]; positions [3, B, S]
+    (temporal, height, width ids); ``sections`` counts the rotary pairs
+    of each id and sums to D/2: frequency band j takes its angle from the
+    id of the section j falls in."""
+    d = x.shape[-1]
+    sec = np.cumsum((0,) + tuple(sections))
+    if sec[-1] != d // 2:
+        raise ValueError(f"mrope sections {sections} != head_dim/2 {d // 2}")
+    ang_all = _rope_angles(positions, d, theta, x.device)   # [3, B, S, D/2]
+    sel = np.zeros(d // 2, dtype=np.int64)
+    for i in range(len(sections)):
+        sel[sec[i]:sec[i + 1]] = i
+    band = torch.arange(d // 2, device=x.device)
+    ang = ang_all[torch.as_tensor(sel, device=x.device), ..., band]
+    return _apply_angles(x, ang.movedim(0, -1))            # [B, S, D/2]
 
 
 def embed_specs(vocab: int, d: int, tied: bool):

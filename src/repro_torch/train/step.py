@@ -12,7 +12,10 @@ __all__ = ["make_serve_step"]
 def make_serve_step(model, flags):
     """Returns (prefill_fn, decode_fn), both greedy.
 
-    prefill_fn(params, batch, cache_len) -> (next_tokens [B, 1], caches);
+    prefill_fn(params, batch, cache_len) -> (next_tokens [B, 1], caches),
+    ``batch`` the family's inputs (tokens; a VLM's ``vision_embeds`` and
+    ``positions`` with them; an encoder's ``features`` and ``mask``, whose
+    prefill gives a token for every position [B, S] and no cache);
     decode_fn(params, caches, tokens [B, 1], pos) -> (next_tokens [B, 1],
     caches) — one new token per sequence against the standing cache.
     """

@@ -149,12 +149,42 @@ def test_softcapped_decode_matches_jax_attend(t, pos, window):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mla=True), dict(n_experts=4, top_k=2), dict(mrope_sections=(4, 2, 2)),
-    dict(family="audio")])
+    dict(mla=True, q_lora=32, kv_lora=16, rope_dim=8, nope_dim=8,
+         v_head_dim=16),
+    dict(n_experts=4, top_k=2, moe_d_ff=96),
+    dict(mrope_sections=(4, 2, 2)),
+    dict(family="audio", frontend_dim=24)])
 def test_unported_paths_raise(change):
+    """The four paths that the dense transformer refused before the rest
+    of the zoo was ported (MLA, MoE, M-RoPE, the audio family), each on
+    gemma2-9b-smoke (windowed, softcapped, post-norm): they build, and
+    their prefill logits and ring caches equal the JAX package's."""
     cfg = dataclasses.replace(get_smoke_config("gemma2-9b"), **change)
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_model(cfg).specs()
+    jcfg = dataclasses.replace(jax_smoke_config("gemma2-9b"), **change)
+    jm, tm = jax_build(jcfg), build_model(cfg)
+    weights = convert.numpy_params(tm.specs(), 5)
+    rng = np.random.default_rng(5)
+    if cfg.family == "audio":
+        batch = {"features": rng.normal(size=(2, PROMPT, 24)).astype(
+                     np.float32),
+                 "mask": rng.random((2, PROMPT)) < 0.3}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab, size=(2, PROMPT))}
+    if cfg.mrope_sections:
+        batch["positions"] = rng.integers(0, PROMPT, size=(3, 2, PROMPT))
+    cache_len = PROMPT + STEPS
+    tl, tc = tm.prefill(convert.tree_from_numpy(weights, "cpu"),
+                        convert.tree_from_numpy(batch, "cpu"), FLAGS,
+                        cache_len)
+    jl, jc = jax.jit(jm.prefill, static_argnums=(2, 3))(
+        jax.tree.map(jnp.asarray, weights),
+        jax.tree.map(jnp.asarray, batch), JFLAGS, cache_len)
+    assert tl.shape == (2, 1, cfg.vocab)
+    _close(tl, jl)
+    assert set(tc["layers"]) == set(jc["layers"])
+    for name, want in jc["layers"].items():
+        assert tuple(tc["layers"][name].shape) == want.shape
+        _close(tc["layers"][name], want, rtol=CACHE_RTOL)
 
 
 def test_serve_cli_on_cpu(capsys):

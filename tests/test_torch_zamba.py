@@ -99,10 +99,22 @@ def test_configs_and_specs_match_jax():
                 (b.shape, b.axes, b.init, b.std)
         assert tm.n_params() == jm.n_params()
     assert build_model(get_config("zamba2-7b")).n_params() == 6_750_249_552
+    # Every arch of the reference is ported: its configs and spec trees
+    # equal the JAX package's.
+    assert PORTED == ARCHS
     for arch in ARCHS:
-        if arch not in PORTED:
-            with pytest.raises(NotImplementedError, match="A11"):
-                get_config(arch)
+        for ours, ref in ((get_config(arch), jax_get_config(arch)),
+                          (get_smoke_config(arch), jax_smoke_config(arch))):
+            assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+            jleaves = jax.tree_util.tree_flatten_with_path(
+                jax_build(ref).specs(), is_leaf=lambda x: hasattr(x, "axes"))[0]
+            tleaves = spec_leaves(build_model(ours).specs())
+            key = lambda k: k.key if hasattr(k, "key") else k.idx
+            assert [tuple(map(key, p)) for p, _ in jleaves] == \
+                [p for p, _ in tleaves], arch
+            for (_, a), (_, b) in zip(jleaves, tleaves):
+                assert (a.shape, a.axes, a.init, a.std) == \
+                    (b.shape, b.axes, b.init, b.std), arch
 
 
 def test_layers_match_jax():
