@@ -7,13 +7,15 @@
     python3 chip_smoke.py --only service
     python3 chip_smoke.py --only extensions
     python3 chip_smoke.py --only zoo
+    python3 chip_smoke.py --only train
 
 With ``--only`` it builds, runs the named kernels' checks and times of
 phases ops and analysis (or, for ``batched``, the batched step's launches
 of phase kernel and phase batched; for ``service``, phase batched's
 tf-cnn runs (d) and then phase service; for ``extensions``, phase
 extensions; for ``zoo``, the zoo's serving runs and golden logits of
-phase model), and prints no result line (a measurement run).
+phase model; for ``train``, phase train), and prints no result line (a
+measurement run).
 Without it, phases one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
@@ -75,7 +77,7 @@ Without it, phases one line each with its times, then two JSON lines:
    (``_auto_lane_chunk``: 11 seats) in one batched step, 3 launches (S =
    11, 12,672, 38,016), each seat bitwise equal to the sequential
    selector, with its seconds and peak memory; (d) tf-cnn, 3 runs on 2
-   slots (a refill) at budget b = 2, against ``run_many``, with 3 launches a step and the
+   slots (a refill) at budget b = 1.5, against ``run_many``, with 3 launches a step and the
    host syncs inside the step bodies counted; steps/s and mean
    ``select_seconds`` of both;
 8. service: the streaming service (``repro_torch.service.StreamingTuner``
@@ -149,6 +151,31 @@ Without it, phases one line each with its times, then two JSON lines:
    reference or the port), 3 launches a selection counted around it,
    against the same call through the plain path (``fused_selector="ref"``),
    with steps, steps/s and mean seconds a selection of both;
+
+12. train (last): (a) the flash-attention backward kernel
+   (``csrc/flash_attention_bwd.cu``) at gemma-2b's training shape (B 1,
+   H 8, KH 1, S 2048, D 256, causal), gemma2-9b's (window 4096, softcap
+   50, S 4608), HuBERT's D 80 non-causal, the MLA's D 192 with H 128, a
+   GQA group of 6 and an edge case off the tiles with rows no key
+   reaches, each driven once through the op (one forward and one backward
+   launch), held against the plain backward evaluated in float64 on the
+   same inputs (``BWD_TOL``) and against itself (two runs bitwise equal),
+   timed from a CUDA graph with its three kernels' times, beside the
+   float32 plain backward, the library's backward (SDPA's, or a compiled
+   ``flex_attention``'s for the window and softcap) and the bound (five
+   products); (b) gemma-2b at full width and depth (18 layers, 2.51 B
+   float32 parameters drawn on the card) trained through
+   ``train.step.make_train_step`` (B 2, S 2048, 2 microbatches, AdamW,
+   the step donated): step 0's loss and gradient norm against the same
+   step with the plain attention (``force="ref"``), then 4 steps with
+   finite losses and 36 forward and 36 backward flash launches a step,
+   step seconds, tokens/s, peak memory, and a fifth step profiled (idle
+   share); (c) a kill-and-restart cycle through
+   ``runtime.fault_tolerance.run_training`` on gemma-2b-smoke whose final
+   state equals an unbroken run's bitwise; (d) gemma-2b-smoke's 3 steps
+   against the JAX package's trajectory (``golden_train.json``); (e)
+   ``ssm_scan`` and ``decode_attention`` refusing CUDA tensors that
+   require grad;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result
@@ -1474,9 +1501,10 @@ def phase_golden(device):
 # Phase 7: the batched harness (run_many_batched, run_queue_batched)
 # --------------------------------------------------------------------------- #
 # (d)'s tf-cnn runs: timeout off, 3 runs on 2 slots, so that a slot
-# refills; at budget b = 2 (B = N·m̃·b: half the paper's exploration budget
-# of b = 3), cut to keep the script within its time limit.
-BATCHED_TF_RUNS, BATCHED_TF_SLOTS, BATCHED_TF_BUDGET = 3, 2, 2.0
+# refills; at budget b = 1.5 (B = N·m̃·b: half the paper's exploration
+# budget of b = 3), cut to keep the script within its time limit (b = 2
+# until phase train came).
+BATCHED_TF_RUNS, BATCHED_TF_SLOTS, BATCHED_TF_BUDGET = 3, 2, 1.5
 
 
 def _mixed_queues():
@@ -1923,7 +1951,8 @@ def _profile(label, fn, wall_s):
     """One call of ``fn`` under ``torch.profiler``, recording the card's
     activity only: device busy seconds (the kernels' summed time), the
     idle share against ``wall_s``, the median wall time of the same work
-    unprofiled, and the kernels that take the most device time."""
+    unprofiled, and the kernels that take the most device time.  Returns
+    the busy seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1948,6 +1977,7 @@ def _profile(label, fn, wall_s):
         _line("model", profile=label, kernel=json.dumps(name[:70]),
               device_ms=f"{us / 1e3:.3f}", calls=calls,
               share=f"{us / 1e6 / busy:.3f}")
+    return busy
 
 
 def _unique_bytes(t):
@@ -3083,6 +3113,524 @@ def phase_extensions(device):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 12: training, and the flash-attention backward kernel
+# --------------------------------------------------------------------------- #
+GOLDEN_TRAIN = ROOT / "src" / "repro_torch" / "testdata" / "golden_train.json"
+# The backward kernel's shapes: (label, B, H, KH, S, T, D, causal, window,
+# softcap, scale; None: D^-0.5).
+BWD_CASES = (
+    ("gemma-2b train: MQA, causal", 1, 8, 1, 2048, 2048, 256, True, None,
+     None, None),
+    ("gemma2-9b: causal, window 4096, softcap 50", 1, 16, 8, 4608, 4608,
+     256, True, 4096, 50.0, 256 ** -0.5),
+    ("hubert-xlarge: D 80, non-causal", 1, 16, 16, 1000, 1000, 80, False,
+     None, None, None),
+    ("deepseek-v3 MLA: D 192, H 128", 1, 128, 128, 2048, 2048, 192, True,
+     None, None, None),
+    ("GQA group 6: H 48, KH 8, D 128", 1, 48, 8, 2048, 2048, 128, True,
+     None, None, None),
+    ("edge: S 1100, T 700 off the tiles, D 100, window 300, dead rows", 1,
+     4, 2, 1100, 700, 100, True, 300, None, None),
+)
+# Each gradient of the kernel within BWD_TOL x its largest magnitude of the
+# plain backward evaluated in float64 on the same inputs (the forward's o
+# and lse included): float32 sums over up to S x group terms a gradient.
+BWD_TOL = 1e-4
+TRAIN = dict(arch="gemma-2b", batch=2, seq=2048, microbatches=2, steps=4)
+# Step 0 through the kernels against the same step with force="ref" (the
+# plain attention) on the card: relative gaps of the loss and of the
+# gradient norm, and the largest gap of an attention projection's
+# gradient entry over the largest entry of that gradient.
+TRAIN_REF_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "attn_grads": 1e-4}
+# golden_train.json: the port on the card against the JAX package's
+# trajectory on the CPU (losses, gradient norms and learning rates
+# relative; each leaf's sampled entries absolute, about a tenth of the
+# learning rate: a gradient entry near zero whose sign differs moves its
+# weight by 2 lr in Adam's first step; each leaf's sum within 1e-5 of its
+# sum of magnitudes).
+GOLDEN_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "lr": 1e-6,
+                    "sample": 1e-4, "sum": 1e-5}
+
+
+def _bwd_plain64(q, k, v, o, lse, do, kw):
+    """The plain backward evaluated in float64, one KV head's query group
+    at a time (the group's [S, T] float64 scores, not the whole call's)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    g = q.shape[1] // k.shape[1]
+    out = [torch.empty(x.shape, dtype=torch.float64, device=x.device)
+           for x in (q, k, v)]
+    for j in range(k.shape[1]):
+        qs, ks = slice(j * g, (j + 1) * g), slice(j, j + 1)
+        parts = attention_bwd_ref(*(x.double() for x in (
+            q[:, qs], k[:, ks], v[:, ks], o[:, qs], lse[:, qs], do[:, qs])),
+            **kw)
+        out[0][:, qs], out[1][:, ks], out[2][:, ks] = parts
+    return out
+
+
+def _library_backward(q, k, v, do, kw):
+    """The library's backward of the same attention, on a graph built
+    once: SDPA's, or a compiled ``flex_attention``'s where there is a
+    window or a softcap.  Returns (label, a call of the backward)."""
+    import torch
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    if kw["window"] is None and kw["softcap"] is None:
+        label = "SDPA backward"
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *xs, is_causal=kw["causal"], scale=kw["scale"],
+            enable_gqa=k.shape[1] != q.shape[1])
+    else:
+        label = "compiled flex_attention backward"
+        o = _flex_attention(*xs, causal=kw["causal"], window=kw["window"],
+                            softcap=kw["softcap"], scale=kw["scale"])()
+    return label, lambda: torch.autograd.grad(o, xs, do, retain_graph=True)
+
+
+def _bwd_case(device, i, case):
+    """One backward shape: driven through the op (forward and backward
+    launches counted), the kernel against the float64 plain backward and
+    itself (bitwise), timed from a CUDA graph beside its three kernels,
+    the float32 plain backward, the library's backward and the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    label, b, h, kh, s, t, d, causal, window, softcap, scale = case
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    gen = torch.Generator(device=device).manual_seed(31 + i)
+    q = torch.randn((b, h, s, d), generator=gen, device=device)
+    k = torch.randn((b, kh, t, d), generator=gen, device=device)
+    v = torch.randn((b, kh, t, d), generator=gen, device=device)
+    do = torch.randn((b, h, s, d), generator=gen, device=device)
+    fa.flash_attention_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    via_op = torch.autograd.grad(flash_attention(*xs, **kw), xs, do)
+    launches = {"forward": fa.flash_attention_cuda.launches,
+                "backward": fa.flash_attention_bwd_cuda.launches}
+    prep, (o, lse), keep = fa.prepare(q, k, v, want_lse=True, **kw)
+    fa.launch(prep)
+    bprep, got, bkeep = fa.prepare_bwd(q, k, v, o, lse, do, **kw)
+    fa.launch_bwd(bprep)
+    _, again, keep2 = fa.prepare_bwd(q, k, v, o, lse, do, **kw)
+    fa.launch_bwd(_)
+    torch.cuda.synchronize(device)
+    bitwise = (all(torch.equal(a, c) for a, c in zip(got, again))
+               and all(torch.equal(a, c) for a, c in zip(got, via_op)))
+    del again, keep2, via_op, xs
+    want = _bwd_plain64(q, k, v, o, lse, do, kw)
+    errs = [(a.double() - w).abs().max().item() for a, w in zip(got, want)]
+    tols = [BWD_TOL * w.abs().max().item() for w in want]
+    plain = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    plain_errs = [(a.double() - w).abs().max().item()
+                  for a, w in zip(plain, want)]
+    del want, plain
+    ms = _graph_ms(_in_turn(fa.launch_bwd, [bprep], device), n=5, reps=4)
+    launch_ms = _launch_ms(lambda: fa.launch_bwd(bprep), n=5, warmup=1)
+    kernel_ms = {name: _launch_ms(lambda bit=bit: fa.launch_bwd(bprep, bit),
+                                  n=5, warmup=1)
+                 for name, bit in fa.BWD_PHASES.items()}
+    plain_ms = _median_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                    **kw), reps=3, warmup=1)
+    lib, lib_ms = None, None
+    if not label.startswith("edge"):
+        try:
+            lib, call = _library_backward(q, k, v, do, kw)
+            lib_ms = _median_ms(call, reps=5, warmup=2)
+            del call
+        except Exception as exc:   # a yardstick only: say why, go on
+            lib = f"failed: {type(exc).__name__}: {str(exc)[:120]}"
+    pairs = _live_pairs(s, t, causal, window)
+    ops = 10 * d * h * b * pairs          # five products of 2.D a pair
+    nbytes = 4 * _tensor_bytes(q) + 2 * _tensor_bytes(k, v) + \
+        _tensor_bytes(lse)
+    ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / \
+        HBM_BYTES_PER_S * 1e3
+    row = dict(kernel="flash_attention_bwd", case=label,
+               max_abs_err=max(errs), errs_dq_dk_dv=errs,
+               tols=tols, plain_f32_errs=plain_errs, ms=ms,
+               launch_ms=launch_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library=lib,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               launches=launches, bitwise_repeat=bitwise,
+               B=b, H=h, KH=kh, S=s, T=t, D=d)
+    _line("train", **{k_: (_fmt(k_, v_) if not isinstance(v_, list)
+                           else json.dumps(v_)) for k_, v_ in row.items()})
+    failures = []
+    if not all(e <= tol for e, tol in zip(errs, tols)):
+        failures.append(f"{label}: errors {errs} over {tols}")
+    if not bitwise:
+        failures.append(f"{label}: two runs differ")
+    if launches != {"forward": 1, "backward": 1}:
+        failures.append(f"{label}: launches {launches}")
+    del prep, keep, bprep, bkeep, got, o, lse
+    torch.cuda.empty_cache()
+    return row, failures
+
+
+def _train_flags(meta):
+    from repro_torch.models import RuntimeFlags
+    return RuntimeFlags(attn_impl=meta["attn_impl"],
+                        loss_chunks=meta["loss_chunks"],
+                        compute_dtype="float32",
+                        microbatches=meta["microbatches"],
+                        grad_compress=meta["grad_compress"])
+
+
+def param_summary(params, n_samples: int = 16) -> dict:
+    """Each leaf's float64 sum, sum of magnitudes and ``n_samples``
+    entries evenly spaced over its flat index (by the leaf's path,
+    "a/b/c"): what ``golden_train.json`` holds of the final parameters."""
+    import numpy as np
+    from repro_torch.models.params import tree_leaves
+    out = {}
+    for path, leaf in zip(_leaf_paths(params), tree_leaves(params)):
+        a = np.asarray(leaf.detach().cpu().double().numpy()
+                       if hasattr(leaf, "detach") else leaf,
+                       np.float64).ravel()
+        idx = np.linspace(0, a.size - 1, min(a.size, n_samples)).astype(int)
+        out[path] = {"sum": float(a.sum()), "abs_sum": float(np.abs(a).sum()),
+                     "sample": [float(x) for x in a[idx]]}
+    return out
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k, v in sorted(tree.items())
+                for p in _leaf_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def train_golden_run(meta, device):
+    """The golden trajectory's steps through the port on ``device``: the
+    smoke config's numpy weights (``convert.numpy_params``), zero moments,
+    ``SyntheticLM``'s batches and ``make_train_step``.  Returns the
+    per-step loss, grad_norm and lr and the final parameters' summary
+    (:func:`param_summary`)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_smoke_config(meta["arch"])
+    model = build_model(cfg)
+    flags = _train_flags(meta)
+    opt = AdamWConfig(**meta["opt"])
+    weights = convert.numpy_params(model.specs(), meta["param_seed"])
+    state = convert.train_state_from_numpy(
+        weights, *_zero_moments(weights), 0, device=device)
+    step = make_train_step(model, flags, opt)
+    data = SyntheticLM(cfg, batch=meta["batch"], seq=meta["seq"],
+                       seed=meta["data_seed"], device=device)
+    out = {"loss": [], "grad_norm": [], "lr": []}
+    for i in range(meta["steps"]):
+        state, metrics = step(state, data(i))
+        for key in out:
+            out[key].append(float(metrics[key]))
+    out["params"] = param_summary(state.params)
+    return out
+
+
+def _zero_moments(weights):
+    """Zero first and second moments of a tree of numpy weights."""
+    import numpy as np
+    from repro_torch.models.params import tree_map
+    zero = lambda a: np.zeros(np.shape(a), np.float32)
+    return tree_map(zero, weights), tree_map(zero, weights)
+
+
+def compare_golden_train(got, want):
+    """The largest gaps of ``got`` (from :func:`train_golden_run`) against
+    the golden file's ``want``, each over its tolerance
+    (``GOLDEN_TRAIN_TOL``): {name: (gap, limit)}; a failed comparison has
+    a gap above its limit."""
+    tol = GOLDEN_TRAIN_TOL
+    out = {}
+    for key in ("loss", "grad_norm", "lr"):
+        gaps = [abs(a - b) / max(abs(b), 1e-30)
+                for a, b in zip(got[key], want[key])]
+        out[key] = (max(gaps), tol[key])
+        if len(got[key]) != len(want[key]):
+            out[key] = (float("inf"), tol[key])
+    if set(got["params"]) != set(want["params"]):
+        out["leaves"] = (float("inf"), 0.0)
+        return out
+    sample, total = 0.0, 0.0
+    for name, w in want["params"].items():
+        g = got["params"][name]
+        sample = max([sample] + [abs(a - b) for a, b in
+                                 zip(g["sample"], w["sample"])])
+        total = max(total, abs(g["sum"] - w["sum"]) / max(w["abs_sum"],
+                                                          1e-30))
+    out["sample"] = (sample, tol["sample"])
+    out["sum"] = (total, tol["sum"])
+    return out
+
+
+def _train_gemma(device):
+    """gemma-2b at full width and depth: step 0's loss and gradient norm
+    through the kernels and with the plain attention (``force="ref"``),
+    then ``TRAIN["steps"]`` donated steps with the flash launches counted
+    (18 layers x 2 microbatches = 36 forward and 36 backward a step), the
+    step seconds, tokens/s, peak memory and, over one more step under the
+    profiler, the idle share."""
+    import functools
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    from repro_torch.train.step import (loss_and_grads, make_train_state,
+                                        make_train_step)
+
+    spec = TRAIN
+    cfg = get_config(spec["arch"])
+    model = build_model(cfg)
+    # The launcher's flags and optimizer (repro_torch.launch.train).
+    flags = RuntimeFlags(attn_impl="chunked", loss_chunks=4,
+                         compute_dtype="float32",
+                         microbatches=spec["microbatches"])
+    opt = AdamWConfig(lr=3e-4, warmup_steps=max(spec["steps"] // 20, 5),
+                      total_steps=spec["steps"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = make_train_state(model, torch.Generator(device=device
+                                                    ).manual_seed(0),
+                             opt, flags, device=device)
+    data = SyntheticLM(cfg, batch=spec["batch"], seq=spec["seq"], seed=0,
+                       device=device)
+    torch.cuda.synchronize(device)
+    _line("train", arch=cfg.name, params=model.n_params(),
+          layers=cfg.n_layers, d_model=cfg.d_model, batch=spec["batch"],
+          seq=spec["seq"], microbatches=spec["microbatches"],
+          init_s=f"{time.perf_counter() - t0:.1f}")
+
+    batch0 = data(0)
+
+    def step0():
+        """Step 0's loss, gradient norm and the attention projections'
+        gradients (the leaves the attention backward feeds first), and the
+        flash launches it made."""
+        fa.flash_attention_cuda.launches = 0
+        fa.flash_attention_bwd_cuda.launches = 0
+        loss, _, grads = loss_and_grads(model, flags, state.params, batch0)
+        attn = {k: g.clone() for k, g in grads["layers"]["attn"].items()}
+        out = (loss.item(), global_norm(grads).item())
+        del grads
+        return out, attn, (fa.flash_attention_cuda.launches,
+                           fa.flash_attention_bwd_cuda.launches)
+
+    kern, kern_attn, kern_launches = step0()
+    plain_attention = attn_mod.flash_attention
+    attn_mod.flash_attention = functools.partial(plain_attention,
+                                                 force="ref")
+    try:
+        ref, ref_attn, ref_launches = step0()
+    finally:
+        attn_mod.flash_attention = plain_attention
+    names = ("loss", "grad_norm")
+    gaps = {key: abs(a - b) / abs(b) for key, a, b in zip(names, kern, ref)}
+    # Each attention projection's gradient, entry by entry, against its
+    # largest magnitude.
+    gaps["attn_grads"] = max(
+        ((kern_attn[k] - g).abs().max() / g.abs().max()).item()
+        for k, g in ref_attn.items())
+    del kern_attn, ref_attn
+    _line("train", **{f"step0_{k}": v for k, v in zip(names, kern)},
+          **{f"step0_{k}_ref": v for k, v in zip(names, ref)},
+          launches=json.dumps(kern_launches),
+          launches_ref=json.dumps(ref_launches),
+          rel_gap=json.dumps(gaps), rtol=json.dumps(TRAIN_REF_RTOL))
+
+    step = make_train_step(model, flags, opt, donate=True)
+    fa.flash_attention_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+    losses, norms, times = [], [], []
+    for i in range(spec["steps"]):
+        t1 = time.perf_counter()
+        state, metrics = step(state, data(i))
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t1)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    launches = {"forward": fa.flash_attention_cuda.launches,
+                "backward": fa.flash_attention_bwd_cuda.launches}
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    step_s = statistics.median(times[1:])
+    busy = _profile(f"{cfg.name} train step",
+                    lambda: step(state, data(spec["steps"])), step_s)
+    _line("train", losses=json.dumps(losses), grad_norms=json.dumps(norms),
+          step_times=json.dumps([round(x, 4) for x in times]),
+          step_s=f"{step_s:.4f}",
+          tokens_per_s=f"{spec['batch'] * spec['seq'] / step_s:.1f}",
+          peak_gb=f"{peak:.2f}", launches=json.dumps(launches),
+          idle_share=f"{1 - busy / step_s:.3f}" if busy else "not measured")
+    per_step = cfg.n_layers * spec["microbatches"]
+    failures = []
+    if not all(math.isfinite(x) for x in losses + norms):
+        failures.append(f"non-finite loss or norm: {losses}, {norms}")
+    if launches != {"forward": per_step * spec["steps"],
+                    "backward": per_step * spec["steps"]}:
+        failures.append(f"flash launches {launches}, expected {per_step} "
+                        f"of each a step")
+    if any(gaps[k] > TRAIN_REF_RTOL[k] for k in gaps):
+        failures.append(f"step 0 against force='ref': {gaps}")
+    if kern_launches != (per_step, per_step) or ref_launches != (0, 0):
+        failures.append(f"step 0's flash launches: {kern_launches} through "
+                        f"the kernels, {ref_launches} with force='ref'")
+    if losses[0] != kern[0]:
+        failures.append(f"step 0's loss {losses[0]} differs from its "
+                        f"earlier run {kern[0]}: not deterministic")
+    del state, metrics, batch0
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(step_s=step_s, tokens_per_s=spec["batch"] * spec["seq"]
+                   / step_s, peak_gb=peak, launches=launches,
+                   idle_share=1 - busy / step_s if busy else None)
+    return summary, failures
+
+
+def _train_restart(device):
+    """A kill-and-restart cycle through ``run_training`` on
+    gemma-2b-smoke: a run that fails at step 9 and resumes from its step-5
+    checkpoint ends with parameters and moments bitwise equal to an
+    unbroken run's."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.fault_tolerance import RunConfig, run_training
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    cfg = get_smoke_config("gemma-2b")
+    model = build_model(cfg)
+    flags = RuntimeFlags(attn_impl="naive", loss_chunks=2,
+                         compute_dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    data = SyntheticLM(cfg, batch=4, seq=16, seed=0, device=device)
+    fresh = lambda: make_train_state(
+        model, torch.Generator(device=device).manual_seed(0), opt, flags,
+        device=device)
+    step = make_train_step(model, flags, opt)
+    root = ROOT / "build" / "train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+    quiet = lambda *a: None
+    cfg_run = dict(total_steps=12, checkpoint_every=5, log_every=100)
+    try:
+        whole = run_training(step, fresh(), data,
+                             CheckpointManager(root / "a", keep=3),
+                             RunConfig(**cfg_run), log=quiet)
+        ckpt = CheckpointManager(root / "b", keep=3)
+        try:
+            run_training(step, fresh(), data, ckpt,
+                         RunConfig(**cfg_run, fail_at_step=9), log=quiet)
+            raise AssertionError("the injected failure did not happen")
+        except RuntimeError as exc:
+            if "injected failure" not in str(exc):
+                raise
+        ckpt.wait()
+        resumed = run_training(step, fresh(), data, ckpt,
+                               RunConfig(**cfg_run), log=quiet)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    pairs = list(zip(tree_leaves(whole["state"]),
+                     tree_leaves(resumed["state"])))
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    _line("train", restart="fail at 9, resume from 5", steps=12,
+          leaves=len(pairs), bitwise_equal=equal)
+    return [] if equal else ["the resumed run's state differs from the "
+                             "unbroken run's"]
+
+
+def _train_golden(device):
+    """gemma-2b-smoke's steps against ``golden_train.json``."""
+    golden = json.loads(GOLDEN_TRAIN.read_text())
+    gaps = compare_golden_train(train_golden_run(golden["meta"], device),
+                                golden)
+    _line("train", golden=GOLDEN_TRAIN.name, config=golden["meta"]["arch"],
+          steps=golden["meta"]["steps"], gaps=json.dumps(gaps))
+    return [f"golden {k}: {g} over {lim}" for k, (g, lim) in gaps.items()
+            if not g <= lim]
+
+
+def _train_guard(device):
+    """The ops without a backward kernel refuse CUDA tensors that require
+    grad, before any launch."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
+
+    g = lambda *shape: torch.randn(shape, device=device, requires_grad=True)
+    calls = {"ssm_scan": (sk.ssm_scan_cuda, lambda: linear_scan(
+                 g(1, 64, 2, 16), g(1, 64, 2, 16), g(1, 64, 2, 16),
+                 -torch.rand((1, 64, 2), device=device), g(1, 64, 2),
+                 chunk=32)),
+             "decode_attention": (dk.decode_attention_cuda,
+                                  lambda: decode_attention(
+                                      g(1, 4, 16), g(1, 2, 64, 16),
+                                      g(1, 2, 64, 16), 40))}
+    failures = []
+    for name, (counter, call) in calls.items():
+        before = counter.launches
+        try:
+            call()
+            failures.append(f"{name} accepted CUDA tensors that require "
+                            f"grad")
+        except NotImplementedError as exc:
+            _line("train", guard=name, raised=json.dumps(str(exc)[:60]))
+        if counter.launches != before:
+            failures.append(f"{name} launched before refusing")
+    return failures
+
+
+def phase_train(device):
+    """(a) the backward kernel at the zoo's training shapes, (b) gemma-2b's
+    train step at full width and depth, (c) a kill-and-restart cycle, (d)
+    the golden trajectory, (e) the no-gradient guard.  Returns (kernel
+    rows, the training run's summary)."""
+    t0 = time.perf_counter()
+    rows, failures = [], []
+    for i, case in enumerate(BWD_CASES):
+        row, bad = _bwd_case(device, i, case)
+        rows.append(row)
+        failures += bad
+    _line("train", part="backward kernel",
+          part_s=f"{time.perf_counter() - t0:.1f}")
+    t1 = time.perf_counter()
+    summary, bad = _train_gemma(device)
+    failures += bad
+    _line("train", part="gemma-2b", part_s=f"{time.perf_counter() - t1:.1f}")
+    t1 = time.perf_counter()
+    failures += _train_restart(device)
+    failures += _train_golden(device)
+    failures += _train_guard(device)
+    _line("train", part="restart, golden, guard",
+          part_s=f"{time.perf_counter() - t1:.1f}",
+          phase_s=f"{time.perf_counter() - t0:.1f}")
+    if failures:
+        raise AssertionError(f"phase train: {failures}")
+    return rows, summary
+
+
 def _all_counters():
     from repro_torch.kernels.select_step.kernel import select_step_cuda
     return dict(_op_counters(), select_step=select_step_cuda)
@@ -3135,7 +3683,7 @@ NO_SPILL = ("select_step_kernel", "flash_bf16_kernel",
             "decode_split_kernel", "decode_combine_kernel",
             "ssm_chunk_state_kernel", "ssm_state_pass_kernel",
             "ssm_chunk_scan_kernel", "masked_argmax_kernel",
-            "tree_predict_kernel")
+            "tree_predict_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
 
 
 def _spills(logs):
@@ -3165,8 +3713,9 @@ def main(argv=None) -> int:
         help="comma-separated kernels of phase ops (tree_predict, gh_ei, "
              "flash_attention, decode_attention, ssm_scan), masked_argmax, "
              "the phase batched, service (phase batched's tf-cnn runs, "
-             "then phase service), extensions and zoo (the archs of ZOO "
-             "served, and the zoo's golden logits): build, run "
+             "then phase service), extensions, zoo (the archs of ZOO "
+             "served, and the zoo's golden logits) and train (the phase "
+             "train): build, run "
              "only their checks and times, and print no result line (a "
              "measurement run, not the smoke)")
     args = parser.parse_args(argv)
@@ -3210,7 +3759,7 @@ def main(argv=None) -> int:
         only = tuple(args.only.split(","))
         ops_only = tuple(k for k in only
                          if k not in ("masked_argmax", "batched", "service",
-                                      "extensions", "zoo"))
+                                      "extensions", "zoo", "train"))
         if "batched" in only:
             phase_kernel(device, tf_job, only_batched=True)
             phase_batched(device, tf_job)
@@ -3227,6 +3776,8 @@ def main(argv=None) -> int:
             phase_extensions(device)
         if "zoo" in only:
             phase_zoo(device)
+        if "train" in only:
+            phase_train(device)
         return 0
     rows, max_err = phase_kernel(device, tf_job)
     op_rows, op_launches = phase_ops(device, tf_job)
@@ -3240,6 +3791,7 @@ def main(argv=None) -> int:
     analysis_rows, argmax_launches = phase_analysis(device)
     model_rows, model_launches, _serving = phase_model(device)
     zoo_rows, zoo_launches = phase_zoo(device)
+    bwd_rows, train = phase_train(device)
     # Each kernel's launches come from the path that runs it: tree_predict
     # and gh_ei from the ops drive, the model kernels from the zamba2-7b
     # serving run (and each serving path's beside it).
@@ -3268,6 +3820,29 @@ def main(argv=None) -> int:
         if entry["name"] in model_kernels:
             entry["launches_by_path"] = {
                 arch: n[entry["name"]] for arch, n in paths.items()}
+        if entry["name"] == "flash_attention":
+            entry["launches_by_path"]["gemma-2b train"] = \
+                train["launches"]["forward"]
+    # The backward kernel's line: gemma-2b's training shape, its launches
+    # those of the training run.
+    row = bwd_rows[0]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "none: no TPU kernel computes it (the reference trains "
+                    "through plain jnp attention, "
+                    "src/repro/launch/train.py:49)",
+        "launches": train["launches"]["backward"],
+        "launches_by_path": {"gemma-2b train":
+                             train["launches"]["backward"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "case": row["case"],
+        "cases": [{k: r[k] for k in ("case", "max_abs_err", "ms",
+                                     "launch_ms", "kernel_ms", "plain_ms",
+                                     "library_ms", "library", "bound_ms",
+                                     "bound_by")} for r in bwd_rows]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

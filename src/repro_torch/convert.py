@@ -18,7 +18,7 @@ from repro_torch.jobs.tables import JobTable
 from repro_torch.models.params import fan_in, spec_leaves, unflatten
 
 __all__ = ["forest_from_numpy", "space_from_numpy", "job_from_numpy",
-           "numpy_params", "tree_from_numpy"]
+           "numpy_params", "tree_from_numpy", "train_state_from_numpy"]
 
 
 def forest_from_numpy(feat, thr, leaf, device="cuda") -> ForestParams:
@@ -93,3 +93,19 @@ def tree_from_numpy(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_from_numpy(v, device) for v in tree)
     return torch.as_tensor(np.array(tree), device=device)
+
+
+def train_state_from_numpy(params, mu, nu, step, residual=(), device="cuda"):
+    """The port's ``train.step.TrainState`` from a reference TrainState's
+    arrays (``params``, ``opt.mu``, ``opt.nu``, ``opt.step``,
+    ``residual``; each tree through ``np.asarray``), on ``device`` (the
+    card unless asked), so that both packages train from one state.  The
+    step becomes a 0-d int32 tensor; an empty ``residual`` stays ``()``."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.step import TrainState
+    device = resolve_device(device)
+    opt = OptState(tree_from_numpy(mu, device), tree_from_numpy(nu, device),
+                   torch.as_tensor(np.asarray(step, np.int32),
+                                   device=device))
+    res = tree_from_numpy(residual, device) if len(residual) else ()
+    return TrainState(tree_from_numpy(params, device), opt, res)

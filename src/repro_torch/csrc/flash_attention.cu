@@ -11,8 +11,12 @@
 // sets masked scores to -0.7·FLT_MAX, as the TPU kernel does: a row's
 // running max starts there, so a first tile in which a row has no live key
 // contributes p = 1 per key until a live score rescales it to 0.  Keys
-// past T score -inf.  o = acc / max(l, 1e-30).  The plain PyTorch version
-// is src/repro_torch/kernels/flash_attention/ref.py.
+// past T score -inf.  o = acc / max(l, 1e-30).  Given a non-null `lse`
+// [B, H, S] (float32 only), the kernel also writes each row's
+// log-sum-exp m + log(max(l, 1e-30)), which the backward kernel
+// (flash_attention_bwd.cu) reads to recompute P; serving passes null and
+// its launches and numbers are as before.  The plain PyTorch version is
+// src/repro_torch/kernels/flash_attention/ref.py.
 //
 // Bound on the H100: operations.  A gemma2-9b prefill (H = 16, KH = 8,
 // D = 256, S = T = 8192, causal) needs 4·D·H·(live pairs) = 5.5e11 FLOP
@@ -102,7 +106,8 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, Params p) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, Params p) {
   constexpr int kStride = DP + 4;
   constexpr int kCols = DP / 64;           // float4 output columns a thread
   extern __shared__ float smem[];
@@ -248,6 +253,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = ty + 16 * i;
     if (r >= q_rows) continue;
     const float denom = fmaxf(l_run[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * p.S + q0 + r] = m_run[i] + logf(denom);
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
 #pragma unroll
@@ -260,8 +267,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           const Params& p, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((kBQ + kBK) * (DP + 4)
                                        + kBQ * kPStride);
   cudaError_t e = cudaFuncSetAttribute(
@@ -272,17 +279,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (grid.x > 0 && grid.y > 0) {
     flash_kernel<DP><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), p);
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_dp(const void* q, const void* k, const void* v, void* o, int B,
-                const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch<64>(q, k, v, o, B, p, stream);
-  if (p.D <= 128) return launch<128>(q, k, v, o, B, p, stream);
-  if (p.D <= 192) return launch<192>(q, k, v, o, B, p, stream);
-  return launch<256>(q, k, v, o, B, p, stream);
+int dispatch_dp(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, const Params& p, cudaStream_t stream) {
+  if (p.D <= 64) return launch<64>(q, k, v, o, lse, B, p, stream);
+  if (p.D <= 128) return launch<128>(q, k, v, o, lse, B, p, stream);
+  if (p.D <= 192) return launch<192>(q, k, v, o, lse, B, p, stream);
+  return launch<256>(q, k, v, o, lse, B, p, stream);
 }
 
 
@@ -619,19 +627,22 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue for a shape the kernel does not take
-// (D > 256 or not a multiple of 4, H not a multiple of KH).  bf16 != 0:
-// the tensors are bfloat16, else float32.  window <= 0 means no window;
-// use_softcap == 0 means no softcap.
+// (D > 256 or not a multiple of 4, H not a multiple of KH; a non-null
+// lse with bfloat16).  bf16 != 0: the tensors are bfloat16, else float32.
+// window <= 0 means no window; use_softcap == 0 means no softcap.  lse
+// null: no log-sum-exp output.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int bf16,
+                                      const void* v, void* o, void* lse,
+                                      int bf16,
                                       int B, int H, int KH, int S, int T,
                                       int D, float scale, int causal,
                                       int window, int use_softcap,
                                       float softcap, void* stream) {
-  if (D <= 0 || D > 256 || D % 4 != 0 || KH <= 0 || H % KH != 0)
+  if (D <= 0 || D > 256 || D % 4 != 0 || KH <= 0 || H % KH != 0
+      || (bf16 && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{H, KH, S, T, D, scale, softcap, causal, window, use_softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch_bf16(q, k, v, o, B, p, st)
-              : dispatch_dp(q, k, v, o, B, p, st);
+              : dispatch_dp(q, k, v, o, lse, B, p, st);
 }

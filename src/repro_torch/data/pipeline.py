@@ -1,16 +1,26 @@
-"""Deterministic synthetic batches — ``repro.data.pipeline.make_batch``.
+"""Deterministic synthetic batches — ``repro.data.pipeline``.
 
-numpy only: the same ``(seed, step)`` gives the same arrays as the
-reference (the same generator, drawn in the same order), so both packages
-serve the same prompts, frames and vision prefixes.  Device placement and
-prefetch wait for the training slice.
+``make_batch`` is numpy only: the same ``(seed, step)`` gives the same
+arrays as the reference (the same generator, drawn in the same order), so
+both packages serve the same prompts, frames and vision prefixes.
+``SyntheticLM`` places each step's batch on the port's device (the card
+unless asked; restart-safe: step k regenerates the stream a failed run
+saw), and ``Prefetcher`` keeps the next batches in flight on a
+background thread.  Sharded placement waits for the mesh slice (ROADMAP
+A12).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import queue
+import threading
 
-__all__ = ["make_batch"]
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["SyntheticLM", "Prefetcher", "make_batch"]
 
 
 def _zipf_tokens(rng: np.random.Generator, shape, vocab: int) -> np.ndarray:
@@ -51,3 +61,50 @@ def make_batch(cfg, shape_name: str, batch: int, seq: int, *, seed: int,
         out["positions"] = np.broadcast_to(pos[:, None, :],
                                            (3, batch, seq)).copy()
     return out
+
+
+class SyntheticLM:
+    """Deterministic stream of global batches on ``device`` (the card
+    unless asked): ``source(step)`` is ``make_batch(seed=seed,
+    step=step)`` as tensors."""
+
+    def __init__(self, cfg, batch: int, seq: int, *, seed: int = 0,
+                 device="cuda"):
+        self.cfg, self.batch, self.seq = cfg, batch, seq
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def __call__(self, step: int) -> dict:
+        host = make_batch(self.cfg, "train", self.batch, self.seq,
+                          seed=self.seed, step=step)
+        return {k: torch.as_tensor(np.asarray(v), device=self.device)
+                for k, v in host.items()}
+
+
+class Prefetcher:
+    """Background-thread prefetch of the next ``depth`` batches: yields
+    ``(step, batch)`` in step order from ``start_step``."""
+
+    def __init__(self, source, start_step: int = 0, depth: int = 2):
+        self.source = source
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                self.q.put((step, self.source(step)), timeout=0.2)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __next__(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=2.0)

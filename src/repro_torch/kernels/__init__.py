@@ -5,7 +5,8 @@ version — the port of ``repro.kernels``.
                      quantized argmax (the selector's hot path)
   tree_predict     — bagged-forest mu/sigma over the points
   gh_ei            — fused constrained EI + budget flag + Gauss-Hermite nodes
-  flash_attention  — train/prefill attention (causal/window/softcap, GQA)
+  flash_attention  — train/prefill attention (causal/window/softcap, GQA),
+                     differentiable: its backward is a kernel too
   decode_attention — single-token attention over a ring KV cache
   ssm_scan         — chunked SSD / gated linear recurrence (Mamba2)
   masked_argmax    — masked, quantized argmax (the determinism gate's

@@ -4,7 +4,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import kernel as _kernel
 from repro_torch.kernels.decode_attention import ref as _ref
-from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
+from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
+                                         resolve_mode)
 
 __all__ = ["decode_attention"]
 
@@ -24,6 +25,7 @@ def decode_attention(q, k, v, pos, *, scale=None, window=None,
     plain = lambda: _ref.decode_attention_ref(q, k, v, pos, **kw)
     if resolve_mode(force, q.device, op="decode_attention") == "ref":
         return plain()
+    require_no_grad("decode_attention", q, k, v)
     out = _kernel.decode_attention_cuda(q, k, v, pos, **kw)
     declare_kernel("decode_attention", out, plain)
     return out

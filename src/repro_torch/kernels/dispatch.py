@@ -15,6 +15,12 @@ wrapper's ``torch.empty`` and nothing of what the kernel computed.  After
 each launch an op calls :func:`declare_kernel`, which hands an active trace
 (``repro_torch.analysis.trace_audit``) the plain version that the kernel is
 held equal to, so the trace can follow the values through it.
+
+A kernel without a backward kernel returns a tensor with no ``grad_fn``:
+autograd would drop that branch of a loss without a word.  Such an op
+calls :func:`require_no_grad` before it launches, which raises when
+gradients are on and an input asks for one.  ``flash_attention`` alone
+has a backward kernel (``csrc/flash_attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from __future__ import annotations
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
-__all__ = ["MODES", "declare_kernel", "resolve_mode"]
+__all__ = ["MODES", "declare_kernel", "require_no_grad",
+           "resolve_mode"]
 
 MODES = ("auto", "kernel", "ref")
 
@@ -45,6 +52,21 @@ def resolve_mode(force: str, device: torch.device, *, op: str = "") -> str:
         raise ValueError(f"op {name!r}: force='kernel' needs CUDA tensors; "
                          "this tensor lies on the CPU")
     return "ref"
+
+
+def require_no_grad(op: str, *tensors) -> None:
+    """Raise before ``op``'s CUDA kernel launches if grad mode is on and any
+    of ``tensors`` (None allowed) requires grad: the kernel has no backward
+    kernel, and its output would carry no gradient.  The plain version on
+    the CPU keeps autograd; this guard is for the card's path."""
+    if not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{op}: its CUDA kernel has no backward kernel, so a gradient "
+            "through it would be dropped; run it under torch.no_grad() or "
+            "on CPU tensors (the backward kernels are ROADMAP Queue A, A12 "
+            "with B9)")
 
 
 def declare_kernel(op: str, outputs, plain) -> None:

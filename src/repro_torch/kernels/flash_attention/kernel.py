@@ -1,11 +1,19 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the CUDA flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and its backward
+(``csrc/flash_attention_bwd.cu``).
 
 :func:`prepare` checks the inputs and allocates the output, :func:`launch`
 launches once on prepared arguments, and :func:`flash_attention_cuda` does
 both and counts the launch in ``flash_attention_cuda.launches`` (and
 nowhere else).  The C entry routes by dtype: bfloat16 to the tensor-core
 kernel (``mma.sync`` with ``cp.async`` loads), float32 to the CUDA-core
-kernel, which keeps the float32 contract that TF32 would break.
+kernel, which keeps the float32 contract that TF32 would break; the
+float32 kernel also writes each row's log-sum-exp when asked
+(``want_lse``), which the backward reads.  :func:`prepare_bwd`,
+:func:`launch_bwd` and :func:`flash_attention_bwd_cuda` are the same for
+the backward (float32 only), counted in
+``flash_attention_bwd_cuda.launches``: one a call, whose three kernels
+are the Δ = rowsum(dO∘O) pre-pass, dK/dV and dQ.
 """
 
 from __future__ import annotations
@@ -15,17 +23,30 @@ import torch
 
 from repro_torch.kernels import capi
 
-__all__ = ["flash_attention_cuda", "launch", "prepare"]
+__all__ = ["flash_attention_bwd_cuda", "flash_attention_cuda", "launch",
+           "launch_bwd", "prepare", "prepare_bwd", "BWD_PHASES"]
 
 _OP = "flash_attention"
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 
 
+_BWD = "flash_attention_bwd"
+# The backward's three kernels, as bits of launch_bwd's ``phases``.
+BWD_PHASES = {"delta": 1, "dkdv": 2, "dq": 4}
+
+
 def _fn():
     return capi.entry(_OP, "flash_attention_launch",
-                      [capi.P] * 4 + [capi.I] * 7
+                      [capi.P] * 5 + [capi.I] * 7
                       + [capi.F, capi.I, capi.I, capi.I, capi.F, capi.P])
+
+
+def _bwd_fn():
+    return capi.entry(_BWD, "flash_attention_bwd_launch",
+                      [capi.P] * 10 + [capi.I] * 6
+                      + [capi.F, capi.I, capi.I, capi.I, capi.F, capi.I,
+                         capi.P])
 
 
 def check_heads(op, q, k, v, n_heads, n_kv, head_dim):
@@ -44,10 +65,16 @@ def check_heads(op, q, k, v, n_heads, n_kv, head_dim):
             raise ValueError(f"{op}: {name} is not 16-byte aligned")
 
 
+def _check_mask(op, window):
+    if window is not None and window <= 0:
+        raise ValueError(f"{op}: window={window} must be positive")
+
+
 def prepare(q, k, v, *, scale=None, causal=True, window=None,
-            softcap=None):
+            softcap=None, want_lse=False):
     """Returns ``(args, out, keep)``: the C entry's arguments, the output
-    tensor and the inputs ``args`` points into."""
+    tensor (``(o, lse)`` with ``want_lse``: lse [B, H, S] float32, float32
+    inputs only) and the inputs ``args`` points into."""
     dev = capi.require_cuda(_OP, q)
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
@@ -55,17 +82,20 @@ def prepare(q, k, v, *, scale=None, causal=True, window=None,
     capi.check(_OP, "k", k, DTYPES, (b, kh, t, d), dev)
     capi.check(_OP, "v", v, DTYPES, (b, kh, t, d), dev)
     check_heads(_OP, q, k, v, h, kh, d)
-    if window is not None and window <= 0:
-        raise ValueError(f"{_OP}: window={window} must be positive")
+    _check_mask(_OP, window)
+    if want_lse and q.dtype != torch.float32:
+        raise TypeError(f"{_OP}: the lse output is float32 only")
     scale = d ** -0.5 if scale is None else scale
     o = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
+           if want_lse else None)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, kh, s, t, d,
+            capi.ptr(lse), int(q.dtype == torch.bfloat16), b, h, kh, s, t, d,
             float(np.float32(scale)), int(bool(causal)),
             0 if window is None else int(window), int(softcap is not None),
             float(np.float32(0.0 if softcap is None else softcap)),
             capi.stream(dev))
-    return args, o, (q, k, v)
+    return args, (o if lse is None else (o, lse)), (q, k, v)
 
 
 def launch(args) -> None:
@@ -74,14 +104,69 @@ def launch(args) -> None:
 
 
 def flash_attention_cuda(q, k, v, *, scale=None, causal=True, window=None,
-                         softcap=None):
+                         softcap=None, want_lse=False):
     """Attention on the card; the contract of
-    :func:`repro_torch.kernels.flash_attention.ref.attention_ref`."""
+    :func:`repro_torch.kernels.flash_attention.ref.attention_ref` (with
+    ``want_lse``, ``(o, lse)``: that of ``ref.attention_fwd_ref``)."""
     args, out, _keep = prepare(q, k, v, scale=scale, causal=causal,
-                               window=window, softcap=softcap)
+                               window=window, softcap=softcap,
+                               want_lse=want_lse)
     launch(args)
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+
+
+def prepare_bwd(q, k, v, o, lse, do, *, scale=None, causal=True,
+                window=None, softcap=None):
+    """The backward's ``(args, (dq, dk, dv), keep)``: the C entry's
+    arguments, the gradients (float32, allocated here with the Δ scratch
+    [B, H, S]) and the tensors ``args`` points into."""
+    dev = capi.require_cuda(_BWD, q)
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    for name, x, shape in (("q", q, (b, h, s, d)), ("k", k, (b, kh, t, d)),
+                           ("v", v, (b, kh, t, d)), ("o", o, (b, h, s, d)),
+                           ("lse", lse, (b, h, s)), ("do", do, (b, h, s, d))):
+        capi.check(_BWD, name, x, f32, shape, dev)
+    check_heads(_BWD, q, k, v, h, kh, d)
+    for name, x in (("o", o), ("do", do)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{_BWD}: {name} is not 16-byte aligned")
+    _check_mask(_BWD, window)
+    scale = d ** -0.5 if scale is None else scale
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((b, h, s), dtype=f32, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, h, kh, s, t, d,
+            float(np.float32(scale)), int(bool(causal)),
+            0 if window is None else int(window), int(softcap is not None),
+            float(np.float32(0.0 if softcap is None else softcap)),
+            capi.stream(dev))
+    return args, (dq, dk, dv), (q, k, v, o, lse, do, delta)
+
+
+def launch_bwd(args, phases: int = 7) -> None:
+    """One launch of the backward's kernels named by ``phases`` (bits of
+    :data:`BWD_PHASES`; all three by default) on prepared arguments; does
+    not count."""
+    capi.raise_on_error(_BWD, _bwd_fn()(*args[:-1], phases, args[-1]))
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale=None,
+                             causal=True, window=None, softcap=None):
+    """(dq, dk, dv) on the card; the contract of
+    :func:`repro_torch.kernels.flash_attention.ref.attention_bwd_ref`."""
+    args, grads, _keep = prepare_bwd(q, k, v, o, lse, do, scale=scale,
+                                     causal=causal, window=window,
+                                     softcap=softcap)
+    launch_bwd(args)
+    flash_attention_bwd_cuda.launches += 1
+    return grads
+
+
+flash_attention_bwd_cuda.launches = 0

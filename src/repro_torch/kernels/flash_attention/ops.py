@@ -1,12 +1,59 @@
-"""Dispatching entry of train/prefill attention."""
+"""Dispatching entry of train/prefill attention, and its gradient.
+
+Without gradients the op is the forward alone: the kernel for CUDA
+tensors, the plain version for CPU tensors (``kernels.dispatch``).  When
+grad mode is on and q, k or v requires grad, the call goes through
+:class:`FlashAttention`, a ``torch.autograd.Function`` that keeps q, k, v,
+o and the rows' log-sum-exp: on the card its forward is the kernel with
+the ``lse`` output and its backward the backward kernel
+(``csrc/flash_attention_bwd.cu``); on the CPU, or with ``force="ref"``,
+both are the plain versions (``ref.attention_fwd_ref``,
+``ref.attention_bwd_ref``).  Training runs float32: a bfloat16 input that
+requires grad raises.
+"""
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 
-__all__ = ["flash_attention"]
+__all__ = ["FlashAttention", "flash_attention"]
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose backward is the backward kernel on the card (mode
+    "kernel") or the plain backward (mode "ref")."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mode, kw):
+        if mode == "kernel":
+            o, lse = _kernel.flash_attention_cuda(q, k, v, want_lse=True,
+                                                  **kw)
+            declare_kernel("flash_attention", o,
+                           lambda: _ref.attention_ref(q, k, v, **kw))
+        else:
+            o, lse = _ref.attention_fwd_ref(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mode, ctx.kw = mode, kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if do.data_ptr() % 16:           # a view that the kernel cannot read
+            do = do.clone()
+        args = (q, k, v, o, lse, do)
+        if ctx.mode == "kernel":
+            grads = _kernel.flash_attention_bwd_cuda(*args, **ctx.kw)
+            declare_kernel("flash_attention_bwd", grads,
+                           lambda: _ref.attention_bwd_ref(*args, **ctx.kw))
+        else:
+            grads = _ref.attention_bwd_ref(*args, **ctx.kw)
+        return (*grads, None, None)
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
@@ -14,13 +61,20 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
     """q [B, H, S, D]; k, v [B, KH, T, D] -> [B, H, S, D] in q's dtype.
 
     The kernel for CUDA tensors, the plain version for CPU tensors (see
-    ``kernels.dispatch``).  ``bq``/``bk`` are the TPU kernel's tiles, kept
-    for its signature; the CUDA kernel picks its own.
+    ``kernels.dispatch``); differentiable through :class:`FlashAttention`
+    (float32 only).  ``bq``/``bk`` are the TPU kernel's tiles, kept for
+    its signature; the CUDA kernel picks its own.
     """
     del bq, bk
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    mode = resolve_mode(force, q.device, op="flash_attention")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.dtype != torch.float32:
+            raise TypeError(f"flash_attention: a gradient needs float32 "
+                            f"inputs (training runs float32), got {q.dtype}")
+        return FlashAttention.apply(q, k, v, mode, kw)
     plain = lambda: _ref.attention_ref(q, k, v, **kw)
-    if resolve_mode(force, q.device, op="flash_attention") == "ref":
+    if mode == "ref":
         return plain()
     out = _kernel.flash_attention_cuda(q, k, v, **kw)
     declare_kernel("flash_attention", out, plain)

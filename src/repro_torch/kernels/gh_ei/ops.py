@@ -3,7 +3,8 @@
 from __future__ import annotations
 
 from repro_torch.core import acquisition as acq
-from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
+from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
+                                         resolve_mode)
 from repro_torch.kernels.gh_ei import kernel as _kernel
 from repro_torch.kernels.gh_ei import ref as _ref
 
@@ -29,6 +30,7 @@ def gh_ei(mu, sigma, u, y_star, t_max, beta, xi, *, cens=None, y_cens=None,
                                    conf=conf)
     if resolve_mode(force, mu.device, op="gh_ei") == "ref":
         return plain()
+    require_no_grad("gh_ei", mu, sigma, u, y_star, t_max, beta, xi)
     out = _kernel.gh_ei_cuda(mu, sigma, u, y_star, t_max, beta, xi,
                              conf=conf)
     declare_kernel("gh_ei", out, plain)

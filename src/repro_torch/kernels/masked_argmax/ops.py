@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
+from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
+                                         resolve_mode)
 from repro_torch.kernels.masked_argmax import kernel as _kernel
 from repro_torch.kernels.masked_argmax import ref as _ref
 
@@ -18,6 +19,7 @@ def masked_argmax(score, valid, *, quantize: bool = True,
     plain = lambda: _ref.masked_argmax_ref(score, valid, quantize=quantize)
     if resolve_mode(force, score.device, op="masked_argmax") == "ref":
         return plain()
+    require_no_grad("masked_argmax", score, valid)
     out = _kernel.masked_argmax_cuda(score, valid, quantize=quantize)
     declare_kernel("masked_argmax", out, plain)
     return out

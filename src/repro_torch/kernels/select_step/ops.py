@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
+from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
+                                         resolve_mode)
 from repro_torch.kernels.select_step import kernel as _kernel
 from repro_torch.kernels.select_step import ref as _ref
 
@@ -23,6 +24,7 @@ def select_step(feat, thr, leaf, y, obs, beta, bf, points, u, t_max, floor,
     plain = lambda: _ref.select_step_ref(*args, cens=cens, valid=valid, **kw)
     if resolve_mode(force, y.device, op="select_step") == "ref":
         return plain()
+    require_no_grad("select_step", *args, cens, valid)
     out = _kernel.select_step_cuda(*args, cens=cens, valid=valid, **kw)
     declare_kernel("select_step", out, plain)
     return out

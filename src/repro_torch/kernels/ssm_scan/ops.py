@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
+from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
+                                         resolve_mode)
 from repro_torch.kernels.ssm_scan import kernel as _kernel
 from repro_torch.kernels.ssm_scan import ref as _ref
 
@@ -22,6 +23,7 @@ def linear_scan(k, v, q, log_decay, gate, *, chunk: int,
     plain = lambda: _ref.linear_scan_ref(k, v, q, log_decay, gate, **kw)
     if resolve_mode(force, k.device, op="ssm_scan") == "ref":
         return plain()
+    require_no_grad("ssm_scan", k, v, q, log_decay, gate, initial_state)
     out = _kernel.ssm_scan_cuda(k, v, q, log_decay, gate, **kw)
     declare_kernel("ssm_scan", out, plain)
     return out

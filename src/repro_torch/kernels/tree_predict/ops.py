@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
+from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
+                                         resolve_mode)
 from repro_torch.kernels.tree_predict import kernel as _kernel
 from repro_torch.kernels.tree_predict import ref as _ref
 
@@ -25,6 +26,7 @@ def tree_predict(x, feat, thr, leaf, *, sigma_floor=1e-6, bm=256,
                                           sigma_floor=sigma_floor)
     if resolve_mode(force, x.device, op="tree_predict") == "ref":
         return plain()
+    require_no_grad("tree_predict", x, feat, thr, leaf)
     out = _kernel.tree_predict_cuda(x, feat, thr, leaf,
                                     sigma_floor=sigma_floor)
     declare_kernel("tree_predict", out, plain)

@@ -1,0 +1,126 @@
+"""Training launcher — ``repro.launch.train`` on one card: config -> train
+state -> ``run_training`` with the fault-tolerance kit.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
+      --batch 2 --seq 2048 --microbatches 2 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
+      --smoke --steps 20 --batch 8 --seq 128 --device cpu
+
+The reference's flags plus ``--device`` (the card unless asked).  The
+state is drawn on the device from a seeded generator and the step donates
+it (updates in place, the reference's ``donate_argnums``).  ``--mesh``
+and a ``--remat`` other than ``none`` raise: sharding and rematerialisation
+are ROADMAP A12's later items.  ``--ckpt none`` runs without checkpoints.
+Prints the reference's JSON keys (``final_step``, ``preempted``,
+``stragglers``, ``final_loss``) and ``step_s`` (the median step after the
+first, which builds the kernels), ``tokens_per_s``, ``peak_gb`` (peak
+allocated device memory) and ``device``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import tempfile
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.models import RuntimeFlags, build_model
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.fault_tolerance import RunConfig, run_training
+from repro_torch.train.step import make_train_state, make_train_step
+
+__all__ = ["main", "run"]
+
+
+class _NoCheckpoint:
+    """``--ckpt none``: nothing to restore, nothing written."""
+
+    def restore_latest(self, like, device=None):
+        return None, None
+
+    def save(self, step, state):
+        pass
+
+    def wait(self):
+        pass
+
+
+def run(args) -> dict:
+    """Train as the parsed ``args`` say; returns the printed summary."""
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: sharded training waits for shard/api.py and "
+            "launch/mesh.py on torch.distributed (ROADMAP Queue A, A12)")
+    if args.remat != "none":
+        raise NotImplementedError(
+            f"--remat {args.remat}: rematerialisation is not ported yet "
+            "(ROADMAP Queue A, A12)")
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    flags = RuntimeFlags(attn_impl="naive" if args.seq <= 512 else "chunked",
+                         loss_chunks=4, compute_dtype="float32",
+                         microbatches=args.microbatches, remat=args.remat,
+                         grad_compress=args.grad_compress)
+    opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
+                      total_steps=args.steps)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = make_train_state(model, gen, opt, flags, device=device)
+    step = make_train_step(model, flags, opt, donate=True)
+    data = SyntheticLM(cfg, batch=args.batch, seq=args.seq, seed=0,
+                       device=device)
+    ckpt = (_NoCheckpoint() if args.ckpt == "none"
+            else CheckpointManager(args.ckpt, keep=3))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = run_training(step, state, data, ckpt,
+                       RunConfig(total_steps=args.steps,
+                                 checkpoint_every=args.ckpt_every,
+                                 log_every=max(args.steps // 20, 1)),
+                       log=lambda *a: print(*a, flush=True))
+    times = out["step_times"]
+    step_s = statistics.median(times[1:] or times) if times else None
+    return {"final_step": out["step"], "preempted": out["preempted"],
+            "stragglers": len(out["stragglers"]),
+            "final_loss": out["history"][-1][1] if out["history"] else None,
+            "step_s": step_s,
+            "tokens_per_s": (args.batch * args.seq / step_s
+                             if step_s else None),
+            "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                        if device.type == "cuda" else None),
+            "device": (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu")}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCHS, required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="none")
+    ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
+                                                   "repro_torch_ckpt"),
+                    help="checkpoint directory, or 'none'")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh", default=None,
+                    help="not ported yet: raises")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    print(json.dumps(run(ap.parse_args(argv))), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,9 @@ for every family of the reference.
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods close over the
 architecture config; ``RuntimeFlags`` stay explicit arguments, as in the
-reference.  Only the serving methods exist so far (``loss`` waits for the
-training slice, ROADMAP A12).
+reference.  ``loss`` is ``transformer_loss`` for the transformer families;
+the hybrid and ssm families' losses run through ``ssm_scan``, which has no
+backward kernel yet, and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm_model as xm
 from repro_torch.models import zamba as zb
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import count_params, init_params
+from repro_torch.models.params import (abstract_params, count_params,
+                                       init_params, logical_axes)
 
 __all__ = ["Model", "build_model"]
 
@@ -26,9 +28,11 @@ __all__ = ["Model", "build_model"]
 class Model:
     cfg: ModelConfig
     specs: Callable          # () -> ParamSpec tree
+    loss: Callable           # (params, batch, flags) -> (loss, metrics)
     prefill: Callable        # (params, batch, flags, cache_len) -> (logits, caches)
     decode: Callable         # (params, caches, tokens, pos, flags) -> (logits, caches)
     cache_shapes: Callable   # (batch, cache_len) -> tree of shape tuples
+    cache_axes: Callable     # () -> tree of logical-axis tuples (same tree)
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device="cuda"):
@@ -36,8 +40,24 @@ class Model:
         unless asked; see ``params.init_params``)."""
         return init_params(self.specs(), generator, dtype, device)
 
+    def abstract(self, dtype=torch.bfloat16):
+        """The parameters' shapes and dtype on the ``meta`` device."""
+        return abstract_params(self.specs(), dtype)
+
+    def axes(self):
+        return logical_axes(self.specs())
+
     def n_params(self) -> int:
         return count_params(self.specs())
+
+
+def _no_ssm_backward(family):
+    def loss(params, batch, flags):
+        raise NotImplementedError(
+            f"the {family} family's loss runs through ssm_scan, whose "
+            "backward kernel is not written yet (ROADMAP Queue A, A12: "
+            "zamba_loss and xlstm_loss with B9's ssm_scan backward)")
+    return loss
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -45,29 +65,35 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             specs=lambda: zb.zamba_specs(cfg),
+            loss=_no_ssm_backward("hybrid"),
             prefill=lambda p, b, f, cl: zb.zamba_prefill(p, cfg, f, b, cl),
             decode=lambda p, c, t, pos, f: zb.zamba_decode(p, cfg, f, c, t,
                                                            pos),
             cache_shapes=lambda b, cl: zb.zamba_cache_shapes(cfg, b, cl),
+            cache_axes=lambda: zb.zamba_cache_axes(cfg),
         )
     if cfg.family in ("dense", "moe", "vlm", "audio"):
         return Model(
             cfg=cfg,
             specs=lambda: tf.transformer_specs(cfg),
+            loss=lambda p, b, f: tf.transformer_loss(p, cfg, f, b),
             prefill=lambda p, b, f, cl: tf.transformer_prefill(p, cfg, f, b,
                                                                cl),
             decode=lambda p, c, t, pos, f: tf.transformer_decode(p, cfg, f, c,
                                                                  t, pos),
             cache_shapes=lambda b, cl: tf.transformer_cache_shapes(cfg, b,
                                                                    cl),
+            cache_axes=lambda: tf.transformer_cache_axes(cfg),
         )
     if cfg.family == "ssm":
         return Model(
             cfg=cfg,
             specs=lambda: xm.xlstm_specs(cfg),
+            loss=_no_ssm_backward("ssm"),
             prefill=lambda p, b, f, cl: xm.xlstm_prefill(p, cfg, f, b, cl),
             decode=lambda p, c, t, pos, f: xm.xlstm_decode_step(p, cfg, f, c,
                                                                 t, pos),
             cache_shapes=lambda b, cl: xm.xlstm_cache_shapes(cfg, b, cl),
+            cache_axes=lambda: xm.xlstm_cache_axes(cfg),
         )
     raise ValueError(f"unknown family {cfg.family!r}")

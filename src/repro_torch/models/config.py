@@ -161,8 +161,10 @@ class RuntimeFlags:
     and ``attn_chunk`` choose between two jnp formulations of attention in
     the reference; the port always runs the attention kernels' ops
     (``models.attention.attend``) and keeps the fields so that one flags
-    object describes a run in both packages.  The training fields wait for
-    the training slice.
+    object describes a run in both packages.  The training step reads
+    ``loss_chunks``, ``microbatches`` and ``grad_compress``; ``remat``
+    other than "none" and the sharding fields wait for ROADMAP A12's later
+    items.
     """
 
     attn_impl: str = "chunked"     # chunked | naive  (naive: tiny tests only)

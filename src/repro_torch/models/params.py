@@ -19,7 +19,8 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["ParamSpec", "spec", "spec_leaves", "fan_in", "init_params",
-           "count_params", "unflatten"]
+           "abstract_params", "logical_axes", "count_params", "unflatten",
+           "tree_leaves", "tree_map", "tree_unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +68,51 @@ def unflatten(paths_and_values, like):
     return build(like, ())
 
 
+def _children(node):
+    """A node's (key, child) pairs in ``jax.tree`` order, or None for a
+    leaf: dict keys sorted, sequence (and named-tuple) items in order."""
+    if isinstance(node, dict):
+        return sorted(node.items())
+    if isinstance(node, (list, tuple)):
+        return list(enumerate(node))
+    return None
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples (named tuples
+    too), in ``jax.tree`` order."""
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [leaf for _, sub in kids for leaf in tree_leaves(sub)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` of the matching leaves of ``tree`` and ``rest`` (trees of the
+    same structure), visited in ``jax.tree`` order; the result has
+    ``tree``'s structure."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(tree, *rest)
+    out = [(key, tree_map(fn, sub, *(r[key] for r in rest)))
+           for key, sub in kids]
+    if isinstance(tree, dict):
+        return dict(out)
+    values = [v for _, v in out]
+    return (type(tree)(*values) if hasattr(tree, "_fields")
+            else type(tree)(values))
+
+
+def tree_unflatten(like, leaves):
+    """The tree of ``like``'s structure holding ``leaves`` in
+    ``jax.tree`` order (the inverse of :func:`tree_leaves`)."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 def fan_in(s: ParamSpec) -> int:
     """Every dim but the last (the output features) and the stacking axes."""
     stacked = {"layers", "experts", "groups"}
@@ -99,6 +145,22 @@ def init_params(specs, generator: torch.Generator, dtype=torch.float32,
                             dtype=torch.float32).mul_(std).to(dtype)
         leaves.append((path, t))
     return unflatten(leaves, specs)
+
+
+def abstract_params(specs, dtype=torch.bfloat16):
+    """Stand-ins for the parameters on the ``meta`` device: each leaf's
+    shape and dtype, no storage (the reference's ``ShapeDtypeStruct``
+    tree)."""
+    return unflatten([(path, torch.empty(s.shape, dtype=dtype,
+                                         device="meta"))
+                      for path, s in spec_leaves(specs)], specs)
+
+
+def logical_axes(specs):
+    """The tree of each leaf's logical axis names, the parameters'
+    structure."""
+    return unflatten([(path, s.axes) for path, s in spec_leaves(specs)],
+                     specs)
 
 
 def count_params(specs) -> int:

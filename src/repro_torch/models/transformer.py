@@ -27,8 +27,13 @@ attention computed (roped K/V; MLA's c_kv after ``kv_norm`` and roped
 k_pe), into the caches (the reference computes them a second time in
 ``_build_caches``: the same operations on the same inputs);
 ``transformer_decode`` writes the token in place.  An encoder's prefill
-returns the full sequence's logits and no cache.  Training
-(``transformer_loss``) is not ported yet (ROADMAP A12).
+returns the full sequence's logits and no cache.
+
+``transformer_loss`` is the reference's training loss: ``hidden_forward``
+under autograd, then the chunked cross-entropy (HuBERT's masked-unit form
+for the audio family) plus 0.01 x the MoE router loss.  On the card its
+attention is ``flash_attention``'s forward and backward kernels
+(``kernels.flash_attention.ops.FlashAttention``).
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
                                        mrope, rmsnorm, rmsnorm_spec, rope,
                                        unembed)
+from repro_torch.models.losses import chunked_ce_from_hidden, masked_unit_ce
 from repro_torch.models.params import spec
 
-__all__ = ["transformer_specs", "transformer_prefill", "transformer_decode",
-           "transformer_cache_shapes", "hidden_forward"]
+__all__ = ["transformer_specs", "transformer_loss", "transformer_prefill",
+           "transformer_decode", "transformer_cache_shapes",
+           "transformer_cache_axes", "hidden_forward"]
 
 
 # --------------------------------------------------------------------------- #
@@ -108,6 +115,19 @@ def _layer(stack, i):
     if isinstance(stack, dict):
         return {k: _layer(v, i) for k, v in stack.items()}
     return stack[i]
+
+
+def _unstack(stack) -> list:
+    """Every layer's parameters of the stacked tree, as views: one
+    ``torch.unbind`` a leaf.  Its backward writes the stacked leaf's
+    gradient once; taking the layers one index at a time would add, for
+    every layer, a zero-filled copy of the whole leaf (18 x 2.4 GB for
+    each of gemma-2b's MLP leaves)."""
+    if isinstance(stack, dict):
+        per = {k: _unstack(v) for k, v in stack.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(stack, 0))
 
 
 def _attention(p, x, cfg: ModelConfig, positions, window, cache=None,
@@ -202,12 +222,12 @@ def _forward(params, cfg, flags, batch, on_cache=None, want_aux=False):
     x, positions = _embed_inputs(params, cfg, flags, batch)
     total = None
     for name, moe, n in _stacks(cfg):
-        for i in range(n):
+        for i, layer in enumerate(_unstack(params[name])):
             keep = (None if on_cache is None else
                     lambda rows, name=name, i=i: on_cache(name, i, rows))
-            x, aux = _block(_layer(params[name], i), x, cfg, flags,
-                            positions, cfg.layer_window(i), moe,
-                            on_cache=keep, want_aux=want_aux)
+            x, aux = _block(layer, x, cfg, flags, positions,
+                            cfg.layer_window(i), moe, on_cache=keep,
+                            want_aux=want_aux)
             if aux is not None:
                 total = aux if total is None else total + aux
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), total
@@ -221,6 +241,24 @@ def hidden_forward(params, cfg: ModelConfig, flags, batch):
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     return hidden, aux
+
+
+def transformer_loss(params, cfg: ModelConfig, flags, batch,
+                     aux_weight: float = 0.01):
+    """(CE + ``aux_weight`` x router loss, {"ce", "aux"}): the token-mean
+    cross-entropy of the next-token targets (``batch["loss_mask"]`` if
+    given; the audio family's masked units), in ``flags.loss_chunks``
+    chunks."""
+    hidden, aux = hidden_forward(params, cfg, flags, batch)
+    if cfg.family == "audio":
+        loss = masked_unit_ce(params["embed"], hidden, batch["targets"],
+                              batch["mask"], n_chunks=flags.loss_chunks)
+    else:
+        loss = chunked_ce_from_hidden(
+            params["embed"], hidden, batch["targets"],
+            batch.get("loss_mask"), softcap=cfg.final_softcap,
+            n_chunks=flags.loss_chunks)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #
@@ -238,6 +276,17 @@ def transformer_cache_shapes(cfg: ModelConfig, batch: int, cache_len: int):
         per = {"k": kv, "v": kv}
     return {name: {k: (n,) + v for k, v in per.items()}
             for name, _, n in _stacks(cfg)}
+
+
+def transformer_cache_axes(cfg: ModelConfig):
+    """Logical axis names of ``transformer_cache_shapes``' tree."""
+    if cfg.mla:
+        per = {"c_kv": (None, "batch", "cache_seq", "kv_lora"),
+               "k_pe": (None, "batch", "cache_seq", None)}
+    else:
+        per = {"k": (None, "batch", "cache_seq", "act_kv_heads", None),
+               "v": (None, "batch", "cache_seq", "act_kv_heads", None)}
+    return {name: per for name, _, _ in _stacks(cfg)}
 
 
 def transformer_prefill(params, cfg: ModelConfig, flags, batch,

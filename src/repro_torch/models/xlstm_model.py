@@ -4,8 +4,8 @@ path of ``repro.models.xlstm_model`` in PyTorch.
 Parameters are the reference's tree: ``blocks`` is a list of per-block
 dicts, in block order.  Serving state is a list with one entry a block: a
 dict (conv, c) for an mLSTM block and a 4-tuple (h, c, n, m) for an sLSTM
-block.  Training (``xlstm_loss``, its remat and cache axes) waits for the
-training slice.
+block; ``xlstm_cache_axes`` names their axes.  Training (``xlstm_loss``
+and its remat) waits for ``ssm_scan``'s backward kernel (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from repro_torch.models.xlstm import (mlstm_block, mlstm_decode, mlstm_specs,
                                       slstm_state_shapes)
 
 __all__ = ["xlstm_specs", "xlstm_prefill", "xlstm_decode_step",
-           "xlstm_cache_shapes", "block_kinds"]
+           "xlstm_cache_shapes", "xlstm_cache_axes", "block_kinds"]
 
 
 def block_kinds(cfg: ModelConfig) -> list[str]:
@@ -47,6 +47,18 @@ def _embed(params, cfg, flags, tokens):
 def xlstm_cache_shapes(cfg: ModelConfig, batch: int, cache_len: int = 0):
     return [mlstm_state_shapes(cfg, batch) if kind == "mlstm"
             else slstm_state_shapes(cfg, batch) for kind in block_kinds(cfg)]
+
+
+def xlstm_cache_axes(cfg: ModelConfig):
+    """Logical axis names of ``xlstm_cache_shapes``' list."""
+    out = []
+    for kind in block_kinds(cfg):
+        if kind == "mlstm":
+            out.append({"conv": ("batch", None, "act_ffn"),
+                        "c": ("batch", "act_heads", None, None)})
+        else:
+            out.append(tuple(("batch", "act_heads", None) for _ in range(4)))
+    return out
 
 
 def xlstm_prefill(params, cfg, flags, batch, cache_len: int = 0):

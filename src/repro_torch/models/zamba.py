@@ -13,8 +13,9 @@ and layouts (``mamba.*`` stacked [n_layers, ...]), so they convert from
 the JAX package one array to one tensor.  Serving state: per-layer Mamba2
 (conv, ssm) states stacked [n_layers, ...] and a per-site KV ring cache
 stacked [n_sites, B, T, KH, D] for the shared block.  ``zamba_decode``
-updates the caches in place and returns them.  Training (``zamba_loss``)
-waits for the training slice.
+updates the caches in place and returns them; ``zamba_cache_axes`` names
+their axes.  Training (``zamba_loss``) waits for ``ssm_scan``'s backward
+kernel (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from repro_torch.models.ssm import (mamba2_block, mamba2_decode,
                                     mamba2_specs, mamba2_state_shapes)
 
 __all__ = ["zamba_specs", "zamba_prefill", "zamba_decode",
-           "zamba_cache_shapes"]
+           "zamba_cache_shapes", "zamba_cache_axes"]
 
 
 def _sites(cfg) -> tuple[int, int]:
@@ -98,6 +99,14 @@ def zamba_cache_shapes(cfg: ModelConfig, batch: int, cache_len: int):
         "attn_k": (n_sites, batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
         "attn_v": (n_sites, batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
     }
+
+
+def zamba_cache_axes(cfg: ModelConfig):
+    """Logical axis names of ``zamba_cache_shapes``' tree."""
+    return {"conv": (None, "batch", None, "ssm_inner"),
+            "ssm": (None, "batch", "act_heads", None, None),
+            "attn_k": (None, "batch", "cache_seq", "act_kv_heads", None),
+            "attn_v": (None, "batch", "cache_seq", "act_kv_heads", None)}
 
 
 def zamba_decode(params, cfg, flags, caches, tokens, pos):

@@ -1,12 +1,146 @@
-"""Serve step factory — ``repro.train.step.make_serve_step`` without a
-mesh (one card).  The training step waits for the training slice
-(ROADMAP A12)."""
+"""Train and serve step factories — ``repro.train.step`` on one card.
+
+``make_train_step`` builds the reference's training step:
+
+* microbatched gradient accumulation (``flags.microbatches``): the batch
+  is cut along its first axis (a VLM's [3, B, S] position ids along B),
+  each microbatch's gradients come from ``torch.autograd.grad`` over the
+  parameter leaves and are added into float32 sums in microbatch order,
+  then divided by the count, as the reference's ``lax.scan`` does;
+* optional int8 error-feedback compression (``flags.grad_compress``);
+* AdamW with warmup-cosine and the global-norm clip.
+
+The step is functional, state in and state out, like the reference's.
+With ``donate=True`` it writes the new parameters and moments into the
+state's tensors (the reference launcher's ``donate_argnums=(0,)``), which
+spares a copy of them; the numbers are the same.  Sharding
+(``state_shardings``, ``batch_shardings``) waits for the mesh slice
+(ROADMAP A12).
+
+``make_serve_step`` builds the greedy prefill and decode closures.
+"""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["make_serve_step"]
+from repro_torch.distributed.compression import compress_with_feedback
+from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates,
+                                     init_opt)
+
+__all__ = ["TrainState", "make_train_state", "make_train_step",
+           "loss_and_grads", "abstract_state", "make_serve_step"]
+
+
+class TrainState(NamedTuple):
+    params: object
+    opt: OptState
+    residual: object      # int8-compression error feedback (or () if off)
+
+
+def _zeros_f32(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def make_train_state(model, generator: torch.Generator,
+                     opt_cfg: AdamWConfig, flags, dtype=torch.float32,
+                     device="cuda") -> TrainState:
+    """Parameters drawn from ``generator`` on ``device`` (the card unless
+    asked), zero moments and, with ``grad_compress``, zero residuals."""
+    del opt_cfg
+    params = model.init(generator, dtype, device)
+    residual = tree_map(_zeros_f32, params) if flags.grad_compress else ()
+    return TrainState(params, init_opt(params), residual)
+
+
+def abstract_state(model, flags, dtype=torch.bfloat16) -> TrainState:
+    """The TrainState's shapes and dtypes on the ``meta`` device (no
+    storage)."""
+    params = model.abstract(dtype)
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    opt = OptState(mu=tree_map(f32, params), nu=tree_map(f32, params),
+                   step=torch.empty((), dtype=torch.int32, device="meta"))
+    residual = tree_map(f32, params) if flags.grad_compress else ()
+    return TrainState(params, opt, residual)
+
+
+def _microbatch(batch: dict, k: int, i: int) -> dict:
+    """Microbatch ``i`` of ``k``: the reference's split (a leaf whose
+    first axis divides by k and is not 3 is cut along it; [3, B, S]
+    position ids along B; anything else goes whole to every microbatch)."""
+    out = {}
+    for name, x in batch.items():
+        if name == "positions" and x.ndim == 3 and x.shape[0] == 3:
+            n = x.shape[1] // k
+            out[name] = x[:, i * n:(i + 1) * n]
+        elif x.ndim >= 1 and x.shape[0] % k == 0 and x.shape[0] != 3:
+            n = x.shape[0] // k
+            out[name] = x[i * n:(i + 1) * n]
+        else:
+            out[name] = x
+    return out
+
+
+def _grads(model, flags, params, batch):
+    """(loss, metrics, float32 gradient leaves) of one (micro)batch."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = model.loss(tree_unflatten(params, leaves), batch,
+                                   flags)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
+             else g.to(torch.float32) for p, g in zip(leaves, grads)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def loss_and_grads(model, flags, params, batch):
+    """(loss, metrics, grads) of one step's batch with the reference's
+    microbatch accumulation: the float32 gradient sums over the
+    ``flags.microbatches`` microbatches divided by their count, the loss
+    their mean; ``metrics`` are the loss's own (``ce``, ``aux``) with one
+    microbatch and empty with several, as in the reference."""
+    k = flags.microbatches
+    if k <= 1:
+        loss, metrics, grads = _grads(model, flags, params, batch)
+        return loss, metrics, tree_unflatten(params, grads)
+    g_sum = None
+    l_sum = 0.0
+    for i in range(k):
+        loss, _, grads = _grads(model, flags, params,
+                                _microbatch(batch, k, i))
+        if g_sum is None:
+            g_sum = [torch.zeros_like(g) for g in grads]
+        for acc, g in zip(g_sum, grads):
+            acc.add_(g)
+        del grads
+        l_sum = l_sum + loss
+    for acc in g_sum:
+        acc.div_(k)
+    return l_sum / k, {}, tree_unflatten(params, g_sum)
+
+
+def make_train_step(model, flags, opt_cfg: AdamWConfig, *,
+                    donate: bool = False):
+    """Returns train_step(state, batch) -> (state, metrics): ``loss``,
+    ``grad_norm`` and ``lr`` (with one microbatch also ``ce`` and
+    ``aux``), 0-d tensors on the state's device."""
+
+    def train_step(state: TrainState, batch):
+        loss, metrics, grads = loss_and_grads(model, flags, state.params,
+                                              batch)
+        residual = state.residual
+        if flags.grad_compress:
+            grads, residual = compress_with_feedback(grads, residual)
+        params, opt, om = apply_updates(state.params, grads, state.opt,
+                                        opt_cfg, inplace=donate)
+        return (TrainState(params, opt, residual),
+                dict(metrics, loss=loss, **om))
+
+    return train_step
 
 
 def make_serve_step(model, flags):
