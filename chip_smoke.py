@@ -8,14 +8,15 @@
     python3 chip_smoke.py --only extensions
     python3 chip_smoke.py --only zoo
     python3 chip_smoke.py --only train
+    python3 chip_smoke.py --only flash_bwd
 
 With ``--only`` it builds, runs the named kernels' checks and times of
 phases ops and analysis (or, for ``batched``, the batched step's launches
 of phase kernel and phase batched; for ``service``, phase batched's
 tf-cnn runs (d) and then phase service; for ``extensions``, phase
 extensions; for ``zoo``, the zoo's serving runs and golden logits of
-phase model; for ``train``, phase train), and prints no result line (a
-measurement run).
+phase model; for ``train``, phase train; for ``flash_bwd``, phase
+train's (a) alone), and prints no result line (a measurement run).
 Without it, phases one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
@@ -160,11 +161,15 @@ Without it, phases one line each with its times, then two JSON lines:
    reaches, each driven once through the op (one forward and one backward
    launch), held against the plain backward evaluated in float64 on the
    same inputs (``BWD_TOL``) and against itself (two runs bitwise equal),
-   timed from a CUDA graph with its three kernels' times, beside the
-   float32 plain backward, the library's backward (SDPA's, or a compiled
+   with its plan (``kernel.bwd_plan``: the query group's split and the
+   workspace bytes), timed from a CUDA graph with each of its kernels'
+   times (Δ, dK/dV, the split's sum, dQ), beside the float32 plain
+   backward, the library's backward (SDPA's, or a compiled
    ``flex_attention``'s for the window and softcap) and the bound (five
-   products); (b) gemma-2b at full width and depth (18 layers, 2.51 B
-   float32 parameters drawn on the card) trained through
+   products in float32 on the CUDA cores; beside it, split TF32, three
+   products each, on the tensor cores); (b)
+   gemma-2b at full width and depth (18 layers, 2.51 B float32
+   parameters drawn on the card) trained through
    ``train.step.make_train_step`` (B 2, S 2048, 2 microbatches, AdamW,
    the step donated): step 0's loss and gradient norm against the same
    step with the plain attention (``force="ref"``), then 4 steps with
@@ -3191,8 +3196,9 @@ def _library_backward(q, k, v, do, kw):
 def _bwd_case(device, i, case):
     """One backward shape: driven through the op (forward and backward
     launches counted), the kernel against the float64 plain backward and
-    itself (bitwise), timed from a CUDA graph beside its three kernels,
-    the float32 plain backward, the library's backward and the bound."""
+    itself (bitwise), with its plan, timed from a CUDA graph beside each
+    of its kernels, the float32 plain backward, the library's backward
+    and the bound (float32, and split TF32 beside it)."""
     import torch
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -3217,6 +3223,7 @@ def _bwd_case(device, i, case):
     fa.launch_bwd(bprep)
     _, again, keep2 = fa.prepare_bwd(q, k, v, o, lse, do, **kw)
     fa.launch_bwd(_)
+    plan = fa.bwd_plan(b, h, kh, s, t, d, causal, window)
     torch.cuda.synchronize(device)
     bitwise = (all(torch.equal(a, c) for a, c in zip(got, again))
                and all(torch.equal(a, c) for a, c in zip(got, via_op)))
@@ -3232,7 +3239,8 @@ def _bwd_case(device, i, case):
     launch_ms = _launch_ms(lambda: fa.launch_bwd(bprep), n=5, warmup=1)
     kernel_ms = {name: _launch_ms(lambda bit=bit: fa.launch_bwd(bprep, bit),
                                   n=5, warmup=1)
-                 for name, bit in fa.BWD_PHASES.items()}
+                 for name, bit in fa.BWD_PHASES.items()
+                 if name != "reduce" or plan.n_split > 1}
     plain_ms = _median_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
                                                     **kw), reps=3, warmup=1)
     lib, lib_ms = None, None
@@ -3247,8 +3255,12 @@ def _bwd_case(device, i, case):
     ops = 10 * d * h * b * pairs          # five products of 2.D a pair
     nbytes = 4 * _tensor_bytes(q) + 2 * _tensor_bytes(k, v) + \
         _tensor_bytes(lse)
+    # The yardstick: the products in float32 at the CUDA cores' rate.
+    # Beside it, the kernel's own form: split TF32 on the tensor cores,
+    # three products for each, as _ssm_bound counts ssm_scan's.
     ops_ms, bytes_ms = ops / FP32_OPS_PER_S * 1e3, nbytes / \
         HBM_BYTES_PER_S * 1e3
+    tf32_ms = 3 * ops / TF32_OPS_PER_S * 1e3
     row = dict(kernel="flash_attention_bwd", case=label,
                max_abs_err=max(errs), errs_dq_dk_dv=errs,
                tols=tols, plain_f32_errs=plain_errs, ms=ms,
@@ -3256,7 +3268,9 @@ def _bwd_case(device, i, case):
                library_ms=lib_ms, library=lib,
                bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               bound_split_tf32_ms=max(tf32_ms, bytes_ms),
                launches=launches, bitwise_repeat=bitwise,
+               n_split=plan.n_split, workspace_bytes=plan.workspace_bytes,
                B=b, H=h, KH=kh, S=s, T=t, D=d)
     _line("train", **{k_: (_fmt(k_, v_) if not isinstance(v_, list)
                            else json.dumps(v_)) for k_, v_ in row.items()})
@@ -3683,7 +3697,8 @@ NO_SPILL = ("select_step_kernel", "flash_bf16_kernel",
             "decode_split_kernel", "decode_combine_kernel",
             "ssm_chunk_state_kernel", "ssm_state_pass_kernel",
             "ssm_chunk_scan_kernel", "masked_argmax_kernel",
-            "tree_predict_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+            "tree_predict_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+            "bwd_reduce_kernel")
 
 
 def _spills(logs):
@@ -3714,8 +3729,9 @@ def main(argv=None) -> int:
              "flash_attention, decode_attention, ssm_scan), masked_argmax, "
              "the phase batched, service (phase batched's tf-cnn runs, "
              "then phase service), extensions, zoo (the archs of ZOO "
-             "served, and the zoo's golden logits) and train (the phase "
-             "train): build, run "
+             "served, and the zoo's golden logits), train (the phase "
+             "train) and flash_bwd (phase train's backward kernel cases "
+             "alone): build, run "
              "only their checks and times, and print no result line (a "
              "measurement run, not the smoke)")
     args = parser.parse_args(argv)
@@ -3759,7 +3775,8 @@ def main(argv=None) -> int:
         only = tuple(args.only.split(","))
         ops_only = tuple(k for k in only
                          if k not in ("masked_argmax", "batched", "service",
-                                      "extensions", "zoo", "train"))
+                                      "extensions", "zoo", "train",
+                                      "flash_bwd"))
         if "batched" in only:
             phase_kernel(device, tf_job, only_batched=True)
             phase_batched(device, tf_job)
@@ -3778,6 +3795,12 @@ def main(argv=None) -> int:
             phase_zoo(device)
         if "train" in only:
             phase_train(device)
+        if "flash_bwd" in only:
+            failures = []
+            for i, case in enumerate(BWD_CASES):
+                failures += _bwd_case(device, i, case)[1]
+            if failures:
+                raise AssertionError(f"flash_bwd: {failures}")
         return 0
     rows, max_err = phase_kernel(device, tf_job)
     op_rows, op_launches = phase_ops(device, tf_job)

@@ -12,11 +12,15 @@ float32 kernel also writes each row's log-sum-exp when asked
 (``want_lse``), which the backward reads.  :func:`prepare_bwd`,
 :func:`launch_bwd` and :func:`flash_attention_bwd_cuda` are the same for
 the backward (float32 only), counted in
-``flash_attention_bwd_cuda.launches``: one a call, whose three kernels
-are the Δ = rowsum(dO∘O) pre-pass, dK/dV and dQ.
+``flash_attention_bwd_cuda.launches``: one a call, whose kernels are the
+Δ = rowsum(dO∘O) pre-pass, dK/dV, the fixed-order sum of dK/dV's partials
+over the query group's split and dQ.  :func:`bwd_plan` fixes the split
+from the shapes alone.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,7 +28,8 @@ import torch
 from repro_torch.kernels import capi
 
 __all__ = ["flash_attention_bwd_cuda", "flash_attention_cuda", "launch",
-           "launch_bwd", "prepare", "prepare_bwd", "BWD_PHASES"]
+           "launch_bwd", "prepare", "prepare_bwd", "BWD_PHASES", "BwdPlan",
+           "bwd_plan"]
 
 _OP = "flash_attention"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -32,8 +37,10 @@ MAX_HEAD_DIM = 256
 
 
 _BWD = "flash_attention_bwd"
-# The backward's three kernels, as bits of launch_bwd's ``phases``.
-BWD_PHASES = {"delta": 1, "dkdv": 2, "dq": 4}
+# The backward's kernels, as bits of launch_bwd's ``phases``; "reduce"
+# launches only where the plan splits the query group.
+BWD_PHASES = {"delta": 1, "dkdv": 2, "dq": 4, "reduce": 8}
+BWD_ALL = sum(BWD_PHASES.values())
 
 
 def _fn():
@@ -44,9 +51,35 @@ def _fn():
 
 def _bwd_fn():
     return capi.entry(_BWD, "flash_attention_bwd_launch",
-                      [capi.P] * 10 + [capi.I] * 6
+                      [capi.P] * 11 + [capi.I] * 7
                       + [capi.F, capi.I, capi.I, capi.I, capi.F, capi.I,
                          capi.P])
+
+
+class BwdPlan(NamedTuple):
+    """The backward's launch plan (:func:`bwd_plan`)."""
+    n_split: int            # blocks a (batch, KV head, key tile) splits into
+    workspace_bytes: int    # the partial dK and dV, 0 where n_split == 1
+
+
+def bwd_plan(b, h, kh, s, t, d, causal=True, window=None) -> BwdPlan:
+    """The backward's plan, a pure function of the shapes: it reads no
+    device, so a call's order of sums, and its bits, are the same on every
+    card.
+
+    The dK/dV kernel gives each block one (batch, KV head, 32-key tile)
+    and one query head of the KV head's group: ``n_split`` = H/KH.
+    gemma-2b's MQA (group 8, 64 key tiles) gets 512 blocks, where one
+    block a key tile walking every head left the card half idle.  Each
+    block writes its partial dK and dV (``workspace_bytes``: n_split x B x
+    KH x T x D float32, for dK and for dV); MHA (n_split 1) writes dK and
+    dV directly.  A coarser split, the smallest reaching 1024 blocks, was
+    no faster on the card at a GQA group of 6 or Gemma2's group of 2.
+    ``s``, ``causal`` and ``window`` do not change the plan."""
+    n_split = h // kh
+    return BwdPlan(n_split=n_split,
+                   workspace_bytes=0 if n_split == 1
+                   else 2 * 4 * n_split * b * kh * t * d)
 
 
 def check_heads(op, q, k, v, n_heads, n_kv, head_dim):
@@ -123,7 +156,9 @@ def prepare_bwd(q, k, v, o, lse, do, *, scale=None, causal=True,
                 window=None, softcap=None):
     """The backward's ``(args, (dq, dk, dv), keep)``: the C entry's
     arguments, the gradients (float32, allocated here with the Δ scratch
-    [B, H, S]) and the tensors ``args`` points into."""
+    [B, H, S] and, where :func:`bwd_plan` splits the group, the workspace
+    of partial dK and dV [2, n_split, B, KH, T, D]) and the tensors
+    ``args`` points into."""
     dev = capi.require_cuda(_BWD, q)
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
@@ -140,20 +175,24 @@ def prepare_bwd(q, k, v, o, lse, do, *, scale=None, causal=True,
     scale = d ** -0.5 if scale is None else scale
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((b, h, s), dtype=f32, device=dev)
+    n_split = bwd_plan(b, h, kh, s, t, d, bool(causal), window).n_split
+    work = (torch.empty((2, n_split, b, kh, t, d), dtype=f32, device=dev)
+            if n_split > 1 else None)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, h, kh, s, t, d,
+            dv.data_ptr(), delta.data_ptr(), capi.ptr(work), b, h, kh, s,
+            t, d, n_split,
             float(np.float32(scale)), int(bool(causal)),
             0 if window is None else int(window), int(softcap is not None),
             float(np.float32(0.0 if softcap is None else softcap)),
             capi.stream(dev))
-    return args, (dq, dk, dv), (q, k, v, o, lse, do, delta)
+    return args, (dq, dk, dv), (q, k, v, o, lse, do, delta, work)
 
 
-def launch_bwd(args, phases: int = 7) -> None:
+def launch_bwd(args, phases: int = BWD_ALL) -> None:
     """One launch of the backward's kernels named by ``phases`` (bits of
-    :data:`BWD_PHASES`; all three by default) on prepared arguments; does
-    not count."""
+    :data:`BWD_PHASES`; all of them by default) on prepared arguments;
+    does not count."""
     capi.raise_on_error(_BWD, _bwd_fn()(*args[:-1], phases, args[-1]))
 
 
