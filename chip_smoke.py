@@ -3122,6 +3122,8 @@ def phase_extensions(device):
 # Phase 12: training, and the flash-attention backward kernel
 # --------------------------------------------------------------------------- #
 GOLDEN_TRAIN = ROOT / "src" / "repro_torch" / "testdata" / "golden_train.json"
+GOLDEN_TRAIN_SSM = (ROOT / "src" / "repro_torch" / "testdata"
+                    / "golden_train_ssm.json")
 # The backward kernel's shapes: (label, B, H, KH, S, T, D, causal, window,
 # softcap, scale; None: D^-0.5).
 BWD_CASES = (
@@ -3135,6 +3137,8 @@ BWD_CASES = (
      None, None, None),
     ("GQA group 6: H 48, KH 8, D 128", 1, 48, 8, 2048, 2048, 128, True,
      None, None, None),
+    ("zamba2-7b train: the shared attention, D 112", 1, 32, 32, 2048, 2048,
+     112, True, None, None, None),
     ("edge: S 1100, T 700 off the tiles, D 100, window 300, dead rows", 1,
      4, 2, 1100, 700, 100, True, 300, None, None),
 )
@@ -3144,10 +3148,26 @@ BWD_CASES = (
 BWD_TOL = 1e-4
 TRAIN = dict(arch="gemma-2b", batch=2, seq=2048, microbatches=2, steps=4)
 # Step 0 through the kernels against the same step with force="ref" (the
-# plain attention) on the card: relative gaps of the loss and of the
-# gradient norm, and the largest gap of an attention projection's
-# gradient entry over the largest entry of that gradient.
+# plain attention, and for xlstm-125m the plain scan) on the card:
+# relative gaps of the loss and of the gradient norm, and the largest gap
+# of an attention projection's gradient entry over the largest entry of
+# that gradient (gemma-2b).  xlstm-125m's mLSTM projections and gates
+# (wq, wk, wv, wi, wf) are held by XLSTM_STEP0_F64_TOL instead.
 TRAIN_REF_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "attn_grads": 1e-4}
+# xlstm-125m's step 0 against a float64 witness on the card: the same step
+# with the parameters in float64, compute_dtype float64 and the plain scan
+# under autograd (each cast on the path keeps float64: ``layers.wide``).
+# For each mLSTM projection's and gate's gradient (wq, wk, wv, wi, wf), the
+# largest gap over the witness's largest entry: the kernel path's, the
+# force="ref" path's (the plain float32 scan takes cum_i - cum_j in float32
+# and loses digits over a chunk, as its forward does: SSM_PLAIN_TOL), and
+# the two float32 paths' gap to each other.
+# Set from the first run's readings (NVIDIA H100 80GB HBM3): the kernel
+# path 1.1e-4 at most (block 0's wf; 1e-5 to 2e-5 on wq, wk, wv, wi), the
+# plain path 9.4e-3 (block 8, under the sLSTM block 7; 1.2e-4 at most above
+# it, where the forget gates' gradients sit near float32's noise), their
+# gap 9.4e-3.  About twice to three times each.
+XLSTM_STEP0_F64_TOL = {"kernel": 3e-4, "plain": 2e-2, "gap": 2e-2}
 # golden_train.json: the port on the card against the JAX package's
 # trajectory on the CPU (losses, gradient norms and learning rates
 # relative; each leaf's sampled entries absolute, about a tenth of the
@@ -3156,6 +3176,16 @@ TRAIN_REF_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "attn_grads": 1e-4}
 # sum of magnitudes).
 GOLDEN_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "lr": 1e-6,
                     "sample": 1e-4, "sum": 1e-5}
+# golden_train_ssm.json (zamba2-smoke, xlstm-125m-smoke): the same, but
+# the gradient norm and the leaves' sums looser.  Two correct float32
+# evaluations of these losses lie up to 1.9e-5 of a leaf's largest
+# gradient apart (tests/test_torch_train_ssm.py), and Adam divides each
+# update by its gradient's size: the port on the CPU, whose arithmetic is
+# the plain version's, lies 1.2e-5 from JAX's third gradient norm
+# (zamba2-smoke) and 7.2e-5 of a leaf's sum of magnitudes from its sum
+# (the sLSTM bias of xlstm-125m-smoke, whose entries' gradients are near
+# float32's noise, through plain autograd).  Four times those gaps.
+GOLDEN_TRAIN_SSM_TOL = dict(GOLDEN_TRAIN_TOL, grad_norm=5e-5, sum=3e-4)
 
 
 def _bwd_plain64(q, k, v, o, lse, do, kw):
@@ -3363,12 +3393,11 @@ def _zero_moments(weights):
     return tree_map(zero, weights), tree_map(zero, weights)
 
 
-def compare_golden_train(got, want):
+def compare_golden_train(got, want, tol=GOLDEN_TRAIN_TOL):
     """The largest gaps of ``got`` (from :func:`train_golden_run`) against
-    the golden file's ``want``, each over its tolerance
-    (``GOLDEN_TRAIN_TOL``): {name: (gap, limit)}; a failed comparison has
-    a gap above its limit."""
-    tol = GOLDEN_TRAIN_TOL
+    the golden file's ``want``, each over its tolerance in ``tol``:
+    {name: (gap, limit)}; a failed comparison has a gap above its
+    limit."""
     out = {}
     for key in ("loss", "grad_norm", "lr"):
         gaps = [abs(a - b) / max(abs(b), 1e-30)
@@ -3585,20 +3614,15 @@ def _train_golden(device):
 
 
 def _train_guard(device):
-    """The ops without a backward kernel refuse CUDA tensors that require
-    grad, before any launch."""
+    """The model ops without a backward kernel (decode_attention: training
+    has no decode) refuse CUDA tensors that require grad, before any
+    launch.  ssm_scan has its backward kernel (part f)."""
     import torch
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.ssm_scan import kernel as sk
-    from repro_torch.kernels.ssm_scan.ops import linear_scan
 
     g = lambda *shape: torch.randn(shape, device=device, requires_grad=True)
-    calls = {"ssm_scan": (sk.ssm_scan_cuda, lambda: linear_scan(
-                 g(1, 64, 2, 16), g(1, 64, 2, 16), g(1, 64, 2, 16),
-                 -torch.rand((1, 64, 2), device=device), g(1, 64, 2),
-                 chunk=32)),
-             "decode_attention": (dk.decode_attention_cuda,
+    calls = {"decode_attention": (dk.decode_attention_cuda,
                                   lambda: decode_attention(
                                       g(1, 4, 16), g(1, 2, 64, 16),
                                       g(1, 2, 64, 16), 40))}
@@ -3616,11 +3640,557 @@ def _train_guard(device):
     return failures
 
 
+# (f) The scan's backward kernel: (label, B, L, H, N, P, chunk, k/q
+# broadcast over the heads, initial state, dS_final, zero gates).
+SSM_BWD_CASES = (
+    ("zamba2-7b layer 0: B 1, L 2048, H 112, N 64, P 64, k/q broadcast", 1,
+     2048, 112, 64, 64, 256, True, False, False, False),
+    ("xlstm-125m mLSTM: B 4, L 2048, H 4, N 384, P 385", 4, 2048, 4, 384,
+     385, 256, False, False, False, False),
+    ("edge: L 1100, initial state, dS_final, zero gates", 2, 1100, 3, 48,
+     65, 256, False, True, True, True),
+)
+# (g), (h): full width; zamba2-7b's depth cut to the deepest 6 s + 3 whose
+# float32 state (parameters, gradient sums, two moments), activations and
+# AdamW's temporaries stay under 72 GB of the card's 80 (27 layers ran out
+# of the card's memory in AdamW's update on the H100).
+TRAIN_SSM = (dict(arch="xlstm-125m", batch=4, seq=2048, microbatches=1,
+                  steps=3, layers=None),
+             dict(arch="zamba2-7b", batch=2, seq=2048, microbatches=2,
+                  steps=3, layers=21))
+
+
+def _ssm_bwd_inputs(device, i, case):
+    """Seeded inputs of one backward case, as the models hand them over:
+    Mamba2's log-decay dt·a (dt a softplus, a = -exp) and gate dt, k and q
+    one row broadcast over the heads; the mLSTM's log-sigmoid forget gate,
+    exponential input gate, k scaled by N^-1/2 and v's ones column."""
+    import torch
+    import torch.nn.functional as F
+    _, b, l, h, n, p, chunk, bcast, s0, dfin, zeros = case
+    gen = torch.Generator(device=device).manual_seed(71 + i)
+    r = lambda *s: torch.randn(s, generator=gen, device=device)
+    if bcast:
+        k = r(b, l, 1, n).expand(b, l, h, n)
+        q = r(b, l, 1, n).expand(b, l, h, n)
+        dt = F.softplus(r(b, l, h) - 1.0)
+        ld, g = dt * -torch.exp(0.5 * r(h)), dt
+    else:
+        k, q = r(b, l, h, n) * n ** -0.5, r(b, l, h, n)
+        ld = F.logsigmoid(r(b, l, h) + 3.0)
+        g = torch.exp(torch.clamp_max(r(b, l, h), 8.0))
+    v = r(b, l, h, p)
+    if not bcast:
+        v[..., -1] = 1.0
+    if zeros:
+        g[:, ::7] = 0.0
+        g[:, -1] = 0.0
+    return (k, v, q, ld, g), dict(
+        chunk=chunk, initial_state=r(b, h, n, p) if s0 else None), \
+        r(b, l, h, p), r(b, h, n, p) if dfin else None
+
+
+def _ssm_bwd_work(args, kw, dy, d_final, states):
+    """Bytes (each input once, each gradient written once) and float32
+    operations of the backward by two algorithms, counted as
+    :func:`_ssm_work` counts the forward (a multiply-add two).  The
+    recurrence, row by row from the last: S_t again from S_{t-1} (the
+    decay, the gated outer product and the add, 3·N·P + N), its gradient
+    G_t = a_{t+1}·G_{t+1} + q_t dy_tᵀ (3·N·P), dq = S_t dy_t, dk̃ = G_t v_t
+    and dṽ = G_tᵀ k_t (2·N·P each), the gating, dg = k·dk̃ and d cum = q·dq
+    - g·dg and its reverse sum (5·N + P + 3); the first row's S without
+    its decay and add against a zero state, the last row's G without them
+    when there is no dS_final and <S_final, dS_final> when there is.  The chunked form the kernel
+    runs: per causal pair of a chunk the scores dy·v and q·k, the weight
+    exp(cum_i - cum_j) and its products with the scores and the gate, and
+    the three products dq, dk̃, dṽ (6·N + 4·P + 5); per row the four state
+    products (ΔG, the carry S_{c-1} dy, G v, Gᵀ k: 8·N·P) and their row
+    scales, the gating, dg, d cum and its sum (8·N + 2·P + 5), the carry
+    skipped in the first chunk against a zero state and G's products in
+    the last without dS_final; per chunk the reverse pass (2·N·P)."""
+    k, v = args[0], args[1]
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    chunk = kw["chunk"]
+    zero = kw.get("initial_state") is None
+    no_df = d_final is None
+    np_ = n * p
+    recurrence = b * h * (l * (12 * np_ + 5 * n + p + 3)
+                          - zero * 2 * np_ + (1 - 2 * no_df) * 2 * np_)
+    sizes = [min(chunk, l - c0) for c0 in range(0, l, chunk)]
+    pairs = sum(c * (c + 1) // 2 for c in sizes)
+    chunked = b * h * (pairs * (6 * n + 4 * p + 5)
+                       + l * (8 * np_ + 8 * n + 2 * p + 5)
+                       - zero * sizes[0] * (2 * np_ + n)
+                       - no_df * sizes[-1] * (4 * np_ + n + p)
+                       + len(sizes) * 2 * np_ + (not no_df) * 2 * np_)
+    ins = sum(_unique_bytes(t) for t in args) + _unique_bytes(dy) + \
+        _unique_bytes(states) + 4 * b * h * n * p * (1 + (not no_df))
+    outs = 4 * b * l * h * (2 * n + p + 2) + 4 * b * h * n * p
+    return ins + outs, recurrence, chunked
+
+
+def _ssm_bwd_case(device, i, case):
+    """One backward shape: driven through the op (forward and backward
+    launches counted), the kernel against the plain backward evaluated in
+    float64 (each gradient within BWD_TOL of its largest magnitude, the
+    forward-class figure SSM_RTOL / SSM_ATOL reported beside it) and itself
+    (bitwise), timed beside each of its kernels, the
+    float32 and float64 plain backwards and the bound.  ``ms`` is host
+    launched (five calls between CUDA events): a call takes milliseconds,
+    its six launches microseconds."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
+    from repro_torch.kernels.ssm_scan.ref import linear_scan_bwd_ref
+
+    label = case[0]
+    args, kw, dy, dfin = _ssm_bwd_inputs(device, i, case)
+    names = ("dk", "dv", "dq", "d_log_decay", "d_gate", "d_initial_state")
+    sk.ssm_scan_cuda.launches = 0
+    sk.ssm_scan_bwd_cuda.launches = 0
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    s0 = kw["initial_state"]
+    s0l = None if s0 is None else s0.clone().requires_grad_(True)
+    y, s = linear_scan(*leaves, chunk=kw["chunk"], initial_state=s0l)
+    loss = (y * dy).sum() + (0 if dfin is None else (s * dfin).sum())
+    via_op = torch.autograd.grad(loss, leaves + ([s0l] if s0l is not None
+                                                 else []))
+    launches = {"forward": sk.ssm_scan_cuda.launches,
+                "backward": sk.ssm_scan_bwd_cuda.launches}
+    del y, s, loss, leaves
+    _, s_fin, states = sk.ssm_scan_cuda(*args, want_states=True, **kw)
+    bkw = dict(kw, states=states, final_state=s_fin)
+    prep, got, keep = sk.prepare_bwd(*args, dy, dfin, **bkw)
+    sk.launch_bwd(prep)
+    prep2, again, keep2 = sk.prepare_bwd(*args, dy, dfin, **bkw)
+    sk.launch_bwd(prep2)
+    torch.cuda.synchronize(device)
+    bitwise = (all(torch.equal(a, c) for a, c in zip(got, again))
+               and all(torch.equal(a, c) for a, c in zip(got, via_op)))
+    del prep2, again, keep2, via_op
+    f64 = lambda t: None if t is None else t.double()
+    want = linear_scan_bwd_ref(*map(f64, args), f64(dy), f64(dfin),
+                               chunk=kw["chunk"], initial_state=f64(s0))
+    if s0 is None:
+        got, want = got[:5], want[:5]
+    errs, tols, fwd_class = {}, {}, {}
+    for name, a, w in zip(names, got, want):
+        d = (a.double() - w).abs()
+        top = w.abs().max().item()
+        errs[name] = d.nan_to_num(nan=float("inf")).max().item()
+        tols[name] = BWD_TOL * top
+        fwd_class[name] = int((~(d <= SSM_RTOL * w.abs()
+                                 + SSM_ATOL * top)).sum())
+    del want
+    t64 = time.perf_counter()
+    linear_scan_bwd_ref(*map(f64, args), f64(dy), f64(dfin),
+                        chunk=kw["chunk"], initial_state=f64(s0))
+    torch.cuda.synchronize(device)
+    plain64_ms = (time.perf_counter() - t64) * 1e3
+    plain = lambda: linear_scan_bwd_ref(*args, dy, dfin, **bkw)
+    plain_ms = _median_ms(plain, reps=3, warmup=1)
+    ms = _launch_ms(lambda: sk.launch_bwd(prep), n=5, warmup=1)
+    kernel_ms = {name: round(_launch_ms(lambda bit=bit: sk.launch_bwd(
+        prep, bit), n=5, warmup=1), 5)
+        for name, bit in sk.BWD_PHASES.items()}
+    nbytes, recurrence, chunked = _ssm_bwd_work(args, kw, dy, dfin, states)
+    ops = min(recurrence, chunked)
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b, l, h, n = args[0].shape
+    row = dict(kernel="ssm_scan_bwd", case=label, max_abs_err=max(
+        errs.values()), errs=errs, tols=tols,
+        outside_forward_class=fwd_class, ms=ms,
+        kernel_ms=kernel_ms, plain_ms=plain_ms, plain64_ms=plain64_ms,
+        library_ms=None,
+        library="none: no single PyTorch call computes it",
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        bound_split_tf32_ms=max(3 * chunked / TF32_OPS_PER_S * 1e3,
+                                bytes_ms),
+        ops=ops, ops_algorithm="recurrence" if recurrence <= chunked
+        else "chunked", ops_recurrence=recurrence, ops_chunked=chunked,
+        bytes=nbytes, launches=launches, bitwise_repeat=bitwise,
+        B=b, L=l, H=h, N=n, P=args[1].shape[-1], chunk=kw["chunk"])
+    _line("train", **{k_: _fmt(k_, v_) for k_, v_ in row.items()})
+    failures = []
+    bad = {k_: e for k_, e in errs.items() if not e <= tols[k_]}
+    if bad:
+        failures.append(f"{label}: errors {bad} over {tols}")
+    if not bitwise:
+        failures.append(f"{label}: two runs differ")
+    if launches != {"forward": 1, "backward": 1}:
+        failures.append(f"{label}: launches {launches}")
+    del prep, keep, got, states, s_fin
+    torch.cuda.empty_cache()
+    return row, failures
+
+
+def _scan_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    return {"ssm_scan": sk.ssm_scan_cuda.launches,
+            "ssm_scan_bwd": sk.ssm_scan_bwd_cuda.launches,
+            "flash_attention": fa.flash_attention_cuda.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd_cuda.launches}
+
+
+def _zero_scan_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    for fn in (sk.ssm_scan_cuda, sk.ssm_scan_bwd_cuda,
+               fa.flash_attention_cuda, fa.flash_attention_bwd_cuda):
+        fn.launches = 0
+
+
+def _slstm_timer(device, spent):
+    """A wrapper of ``slstm_block`` that adds to ``spent`` each call's
+    forward seconds and, through hooks on its output's and its input's
+    gradients, its backward's (host clock, synchronized)."""
+    import torch
+    from repro_torch.models import xlstm_model as xm
+    real = xm.slstm_block
+
+    def mark(key):
+        def hook(grad):
+            torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            if key == "out":
+                spent["_t"] = now
+            else:
+                spent["backward"] += now - spent.pop("_t")
+        return hook
+
+    def timed(p, x, cfg, state=None):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out, st = real(p, x, cfg, state)
+        torch.cuda.synchronize(device)
+        spent["forward"] += time.perf_counter() - t
+        if out.requires_grad and x.requires_grad:
+            out.register_hook(mark("out"))
+            x.register_hook(mark("in"))
+        return out, st
+
+    return real, timed
+
+
+# The mLSTM projections and gates whose gradients step 0 holds.
+SCAN_GRAD_KEYS = ("wq", "wk", "wv", "wi", "wf")
+
+
+def _step0_f64(model, flags, params, batch, keys):
+    """The float64 witness of xlstm-125m's step 0 on the card -> (loss,
+    {"block/key": gradient}) of the mLSTM blocks' ``keys``: the
+    parameters cast, compute_dtype float64 and the scan's plain version
+    under autograd (``linear_scan_ref``: the op's differentiable path takes
+    float32 only)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
+    from repro_torch.kernels.ssm_scan.ref import linear_scan_ref
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import xlstm as xl_mod
+    from repro_torch.models.params import tree_map
+    p64 = tree_map(lambda t: t.detach().double().requires_grad_(True),
+                   params)
+    flags64 = dataclasses.replace(flags, compute_dtype="float64")
+    want = [(f"{i}/{k}", blk[k]) for i, blk in enumerate(p64["blocks"])
+            for k in keys if k in blk]
+    ssm_mod.chunked_linear_scan = xl_mod.chunked_linear_scan = \
+        linear_scan_ref
+    try:
+        with torch.enable_grad():
+            loss, _ = model.loss(p64, batch, flags64)
+            grads = torch.autograd.grad(loss, [t for _, t in want])
+    finally:
+        ssm_mod.chunked_linear_scan = xl_mod.chunked_linear_scan = \
+            linear_scan
+    out = {name: g for (name, _), g in zip(want, grads)}
+    del p64, grads
+    return loss.item(), out
+
+
+def _train_ssm(device, spec):
+    """One arch of the hybrid or ssm family trained at full width (depth
+    cut where ``spec["layers"]`` says): seeded weights, AdamW and the
+    launcher's flags; for xlstm-125m step 0 through the kernels against
+    the same step with ``force="ref"`` (the plain scan and attention),
+    both against the float64 witness (:func:`_step0_f64`), and the sLSTM
+    blocks' share of step 0; then ``spec["steps"]`` donated steps
+    with the launches counted, step seconds, tokens/s and peak memory."""
+    import dataclasses
+    import functools
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.ssm_scan.ops import linear_scan
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import xlstm as xl_mod
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.models import xlstm_model as xm
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    from repro_torch.train.step import (loss_and_grads, make_train_state,
+                                        make_train_step)
+
+    cfg = get_config(spec["arch"])
+    reduced = None
+    if spec["layers"] is not None:
+        reduced = {"n_layers": [cfg.n_layers, spec["layers"]]}
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    model = build_model(cfg)
+    flags = RuntimeFlags(attn_impl="chunked", loss_chunks=4,
+                         compute_dtype="float32",
+                         microbatches=spec["microbatches"])
+    opt = AdamWConfig(lr=3e-4, warmup_steps=max(spec["steps"] // 20, 5),
+                      total_steps=spec["steps"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = make_train_state(model, torch.Generator(device=device
+                                                    ).manual_seed(0),
+                             opt, flags, device=device)
+    data = SyntheticLM(cfg, batch=spec["batch"], seq=spec["seq"], seed=0,
+                       device=device)
+    torch.cuda.synchronize(device)
+    _line("train", arch=cfg.name, params=model.n_params(),
+          layers=cfg.n_layers, reduced=json.dumps(reduced),
+          d_model=cfg.d_model, batch=spec["batch"], seq=spec["seq"],
+          microbatches=spec["microbatches"],
+          init_s=f"{time.perf_counter() - t0:.1f}")
+    failures, extra = [], {}
+    if cfg.family == "ssm":
+        batch0 = data(0)
+        spent = {"forward": 0.0, "backward": 0.0}
+        real, timed = _slstm_timer(device, spent)
+
+        def step0():
+            _zero_scan_counts()
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            loss, _, grads = loss_and_grads(model, flags, state.params,
+                                            batch0)
+            out = (loss.item(), global_norm(grads).item())
+            wall = time.perf_counter() - t1
+            scan = {f"{i}/{k}": g.clone() for i, blk in
+                    enumerate(grads["blocks"]) for k, g in blk.items()
+                    if k in SCAN_GRAD_KEYS}
+            del grads
+            return out, scan, _scan_counts(), wall
+
+        xm.slstm_block = timed
+        try:
+            kern, kern_scan, kern_launches, wall0 = step0()
+        finally:
+            xm.slstm_block = real
+        plain_scan = functools.partial(linear_scan, force="ref")
+        plain_attention = attn_mod.flash_attention
+        ssm_mod.chunked_linear_scan = xl_mod.chunked_linear_scan = plain_scan
+        attn_mod.flash_attention = functools.partial(plain_attention,
+                                                     force="ref")
+        try:
+            ref, ref_scan, ref_launches, _ = step0()
+        finally:
+            ssm_mod.chunked_linear_scan = linear_scan
+            xl_mod.chunked_linear_scan = linear_scan
+            attn_mod.flash_attention = plain_attention
+        names = ("loss", "grad_norm")
+        gaps = {key: abs(a - b) / abs(b)
+                for key, a, b in zip(names, kern, ref)}
+        t1 = time.perf_counter()
+        loss64, wit = _step0_f64(model, flags, state.params, batch0,
+                                 SCAN_GRAD_KEYS)
+        witness_s = time.perf_counter() - t1
+        rel = lambda a, w: ((a.double() - w).abs().max()
+                            / w.abs().max()).item()
+        scan_gap = {
+            "kernel": {k: rel(kern_scan[k], w) for k, w in wit.items()},
+            "plain": {k: rel(ref_scan[k], w) for k, w in wit.items()},
+            "gap": {k: rel(kern_scan[k], ref_scan[k].double())
+                    for k in wit}}
+        worst = {k: max(v.values()) for k, v in scan_gap.items()}
+        del kern_scan, ref_scan, wit
+        slstm_s = spent["forward"] + spent["backward"]
+        extra = dict(slstm_forward_s=spent["forward"],
+                     slstm_backward_s=spent["backward"],
+                     step0_wall_s=wall0, slstm_share=slstm_s / wall0)
+        _line("train", arch=cfg.name,
+              **{f"step0_{k}": v for k, v in zip(names, kern)},
+              **{f"step0_{k}_ref": v for k, v in zip(names, ref)},
+              launches=json.dumps(kern_launches),
+              launches_ref=json.dumps(ref_launches),
+              rel_gap=json.dumps(gaps), rtol=json.dumps(TRAIN_REF_RTOL),
+              step0_loss_f64=loss64, witness_s=f"{witness_s:.1f}",
+              scan_grads_f64=json.dumps(scan_gap),
+              scan_grads_worst=json.dumps(worst),
+              scan_grads_tol=json.dumps(XLSTM_STEP0_F64_TOL),
+              slstm_forward_s=f"{spent['forward']:.4f}",
+              slstm_backward_s=f"{spent['backward']:.4f}",
+              step0_wall_s=f"{wall0:.4f}",
+              slstm_share=f"{slstm_s / wall0:.3f}")
+        if any(gaps[k] > TRAIN_REF_RTOL[k] for k in gaps):
+            failures.append(f"{cfg.name} step 0 against force='ref': {gaps}")
+        if not all(worst[k] <= XLSTM_STEP0_F64_TOL[k] for k in worst):
+            failures.append(f"{cfg.name} step 0's scan gradients against "
+                            f"float64: {worst} over {XLSTM_STEP0_F64_TOL}")
+        if ref_launches["ssm_scan"] or ref_launches["ssm_scan_bwd"]:
+            failures.append(f"{cfg.name} force='ref' launched {ref_launches}")
+        del batch0
+        # The peak below is the training steps' (the witness's float64
+        # step holds more than they do).
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    step = make_train_step(model, flags, opt, donate=True)
+    _zero_scan_counts()
+    losses, norms, times = [], [], []
+    # The first step's last backward call is the first block's: kept.
+    real_prepare, calls = sk.prepare_bwd, []
+
+    def recording(*a, **kw):
+        calls[:] = [(a, kw)]
+        return real_prepare(*a, **kw)
+
+    sk.prepare_bwd = recording
+    for i in range(spec["steps"]):
+        t1 = time.perf_counter()
+        try:
+            state, metrics = step(state, data(i))
+        finally:
+            sk.prepare_bwd = real_prepare
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t1)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    launches = _scan_counts()
+    failures += _check_captured_bwd(device, cfg.name, *calls[0])
+    del calls
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    step_s = statistics.median(times[1:])
+    tokens_s = spec["batch"] * spec["seq"] / step_s
+    # The kernel split and idle share of one more step under the profiler
+    # (zamba2-7b; xlstm-125m's step is the sLSTM loop's, timed above).
+    busy = None
+    if cfg.family == "hybrid":
+        busy = _profile(f"{cfg.name} train step",
+                        lambda: step(state, data(spec["steps"])), step_s)
+        extra["idle_share"] = 1 - busy / step_s if busy else None
+    _line("train", arch=cfg.name, losses=json.dumps(losses),
+          grad_norms=json.dumps(norms),
+          step_times=json.dumps([round(x, 4) for x in times]),
+          step_s=f"{step_s:.4f}", tokens_per_s=f"{tokens_s:.1f}",
+          peak_gb=f"{peak:.2f}", launches=json.dumps(launches),
+          idle_share=f"{1 - busy / step_s:.3f}" if busy else
+          "not measured")
+    n_scan = sum(k == "mlstm" for k in xm.block_kinds(cfg)) \
+        if cfg.family == "ssm" else cfg.n_layers
+    n_attn = 0 if cfg.family == "ssm" else cfg.n_layers // cfg.attn_every
+    per_step = spec["microbatches"] * spec["steps"]
+    want = {"ssm_scan": n_scan * per_step, "ssm_scan_bwd": n_scan * per_step,
+            "flash_attention": n_attn * per_step,
+            "flash_attention_bwd": n_attn * per_step}
+    if not all(math.isfinite(x) for x in losses + norms):
+        failures.append(f"{cfg.name}: non-finite loss or norm: {losses}, "
+                        f"{norms}")
+    if launches != want:
+        failures.append(f"{cfg.name}: launches {launches}, expected {want}")
+    if peak > 72.0:
+        failures.append(f"{cfg.name}: peak {peak:.2f} GB over 72 GB")
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(arch=cfg.name, step_s=step_s, tokens_per_s=tokens_s,
+                   peak_gb=peak, launches=launches, reduced=reduced, **extra)
+    return summary, failures
+
+
+def _check_captured_bwd(device, arch, args, kw):
+    """The backward kernel on a training step's own call (the first
+    block's: its inputs, dy and the forward's states) against the plain
+    backward evaluated in float64, each gradient within BWD_TOL of its
+    largest magnitude; the float32 plain backward's error beside it."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan.ref import linear_scan_bwd_ref
+    names = ("dk", "dv", "dq", "d_log_decay", "d_gate")
+    prep, got, keep = sk.prepare_bwd(*args, **kw)
+    sk.launch_bwd(prep)
+    f64 = lambda t: None if t is None else t.double()
+    want = linear_scan_bwd_ref(*map(f64, args), chunk=kw["chunk"],
+                               initial_state=f64(kw["initial_state"]))
+    plain = linear_scan_bwd_ref(*args, **kw)
+    errs, plain_errs, tols = {}, {}, {}
+    for name, a, p, w in zip(names, got, plain, want):
+        tols[name] = BWD_TOL * w.abs().max().item()
+        errs[name] = (a.double() - w).abs().nan_to_num(
+            nan=float("inf")).max().item()
+        plain_errs[name] = (p.double() - w).abs().max().item()
+    k, v = args[0], args[1]
+    _line("train", arch=arch, captured="first block's backward call",
+          shape=json.dumps([*k.shape, v.shape[-1]]),
+          k_head_stride=k.stride(2), errs=json.dumps(errs),
+          tols=json.dumps(tols), plain_f32_errs=json.dumps(plain_errs))
+    del prep, got, keep, want, plain
+    torch.cuda.empty_cache()
+    bad = {n: e for n, e in errs.items() if not e <= tols[n]}
+    return [f"{arch} first block's backward: {bad} over {tols}"] \
+        if bad else []
+
+
+def _train_golden_ssm(device):
+    """zamba2-smoke's and xlstm-125m-smoke's steps against
+    ``golden_train_ssm.json``."""
+    golden = json.loads(GOLDEN_TRAIN_SSM.read_text())["runs"]
+    failures = []
+    for arch, want in golden.items():
+        gaps = compare_golden_train(train_golden_run(want["meta"], device),
+                                    want, GOLDEN_TRAIN_SSM_TOL)
+        _line("train", golden=GOLDEN_TRAIN_SSM.name, config=arch,
+              steps=want["meta"]["steps"], gaps=json.dumps(gaps))
+        failures += [f"golden {arch} {k}: {g} over {lim}"
+                     for k, (g, lim) in gaps.items() if not g <= lim]
+    return failures
+
+
+def phase_train_ssm(device):
+    """(f) the scan's backward kernel at the training shapes, (g)
+    xlstm-125m and (h) zamba2-7b (depth cut) trained, (i) the two smoke
+    trajectories against ``golden_train_ssm.json``.  Returns (kernel rows,
+    the training runs' summaries, failures)."""
+    t0 = time.perf_counter()
+    rows, failures = [], []
+    for i, case in enumerate(SSM_BWD_CASES):
+        row, bad = _ssm_bwd_case(device, i, case)
+        rows.append(row)
+        failures += bad
+    _line("train", part="ssm_scan backward kernel",
+          part_s=f"{time.perf_counter() - t0:.1f}")
+    runs = {}
+    for spec in TRAIN_SSM:
+        t1 = time.perf_counter()
+        summary, bad = _train_ssm(device, spec)
+        runs[summary["arch"]] = summary
+        failures += bad
+        _line("train", part=summary["arch"],
+              part_s=f"{time.perf_counter() - t1:.1f}")
+    t1 = time.perf_counter()
+    failures += _train_golden_ssm(device)
+    _line("train", part="golden_train_ssm",
+          part_s=f"{time.perf_counter() - t1:.1f}",
+          parts_f_to_i_s=f"{time.perf_counter() - t0:.1f}")
+    return rows, runs, failures
+
+
 def phase_train(device):
     """(a) the backward kernel at the zoo's training shapes, (b) gemma-2b's
     train step at full width and depth, (c) a kill-and-restart cycle, (d)
-    the golden trajectory, (e) the no-gradient guard.  Returns (kernel
-    rows, the training run's summary)."""
+    the golden trajectory, (e) the no-gradient guard, then (f)-(i) of
+    :func:`phase_train_ssm`.  Returns (flash backward rows, gemma-2b's
+    summary, ssm_scan backward rows, the hybrid and ssm runs' summaries)."""
     t0 = time.perf_counter()
     rows, failures = [], []
     for i, case in enumerate(BWD_CASES):
@@ -3638,11 +4208,13 @@ def phase_train(device):
     failures += _train_golden(device)
     failures += _train_guard(device)
     _line("train", part="restart, golden, guard",
-          part_s=f"{time.perf_counter() - t1:.1f}",
-          phase_s=f"{time.perf_counter() - t0:.1f}")
+          part_s=f"{time.perf_counter() - t1:.1f}")
+    ssm_rows, runs, bad = phase_train_ssm(device)
+    failures += bad
+    _line("train", phase_s=f"{time.perf_counter() - t0:.1f}")
     if failures:
         raise AssertionError(f"phase train: {failures}")
-    return rows, summary
+    return rows, summary, ssm_rows, runs
 
 
 def _all_counters():
@@ -3730,8 +4302,10 @@ def main(argv=None) -> int:
              "the phase batched, service (phase batched's tf-cnn runs, "
              "then phase service), extensions, zoo (the archs of ZOO "
              "served, and the zoo's golden logits), train (the phase "
-             "train) and flash_bwd (phase train's backward kernel cases "
-             "alone): build, run "
+             "train), flash_bwd (phase train's flash backward kernel "
+             "cases alone), train_ssm (phase train's parts f-i: the "
+             "ssm_scan backward kernel, xlstm-125m and zamba2-7b trained, "
+             "their smoke goldens) and ssm_bwd (part f alone): build, run "
              "only their checks and times, and print no result line (a "
              "measurement run, not the smoke)")
     args = parser.parse_args(argv)
@@ -3776,7 +4350,7 @@ def main(argv=None) -> int:
         ops_only = tuple(k for k in only
                          if k not in ("masked_argmax", "batched", "service",
                                       "extensions", "zoo", "train",
-                                      "flash_bwd"))
+                                      "flash_bwd", "train_ssm", "ssm_bwd"))
         if "batched" in only:
             phase_kernel(device, tf_job, only_batched=True)
             phase_batched(device, tf_job)
@@ -3795,6 +4369,16 @@ def main(argv=None) -> int:
             phase_zoo(device)
         if "train" in only:
             phase_train(device)
+        if "train_ssm" in only:
+            failures = phase_train_ssm(device)[2]
+            if failures:
+                raise AssertionError(f"train_ssm: {failures}")
+        if "ssm_bwd" in only:
+            failures = []
+            for i, case in enumerate(SSM_BWD_CASES):
+                failures += _ssm_bwd_case(device, i, case)[1]
+            if failures:
+                raise AssertionError(f"ssm_bwd: {failures}")
         if "flash_bwd" in only:
             failures = []
             for i, case in enumerate(BWD_CASES):
@@ -3814,7 +4398,7 @@ def main(argv=None) -> int:
     analysis_rows, argmax_launches = phase_analysis(device)
     model_rows, model_launches, _serving = phase_model(device)
     zoo_rows, zoo_launches = phase_zoo(device)
-    bwd_rows, train = phase_train(device)
+    bwd_rows, train, ssm_bwd_rows, ssm_runs = phase_train(device)
     # Each kernel's launches come from the path that runs it: tree_predict
     # and gh_ei from the ops drive, the model kernels from the zamba2-7b
     # serving run (and each serving path's beside it).
@@ -3846,6 +4430,10 @@ def main(argv=None) -> int:
         if entry["name"] == "flash_attention":
             entry["launches_by_path"]["gemma-2b train"] = \
                 train["launches"]["forward"]
+        if entry["name"] in ("ssm_scan", "flash_attention"):
+            for arch, run in ssm_runs.items():
+                entry["launches_by_path"][f"{arch} train"] = \
+                    run["launches"][entry["name"]]
     # The backward kernel's line: gemma-2b's training shape, its launches
     # those of the training run.
     row = bwd_rows[0]
@@ -3857,7 +4445,10 @@ def main(argv=None) -> int:
                     "src/repro/launch/train.py:49)",
         "launches": train["launches"]["backward"],
         "launches_by_path": {"gemma-2b train":
-                             train["launches"]["backward"]},
+                             train["launches"]["backward"],
+                             **{f"{arch} train":
+                                run["launches"]["flash_attention_bwd"]
+                                for arch, run in ssm_runs.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -3866,6 +4457,26 @@ def main(argv=None) -> int:
                                      "launch_ms", "kernel_ms", "plain_ms",
                                      "library_ms", "library", "bound_ms",
                                      "bound_by")} for r in bwd_rows]})
+    # The scan's backward: zamba2-7b's layer shape, its launches those of
+    # the two training runs (g) and (h).
+    row = ssm_bwd_rows[0]
+    by_path = {f"{arch} train": run["launches"]["ssm_scan_bwd"]
+               for arch, run in ssm_runs.items()}
+    kernels.append({
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+        "replaces": "none: no TPU kernel computes it (the Pallas ssm_scan "
+                    "has no backward; the reference trains through the "
+                    "plain chunked_linear_scan, src/repro/models/ssm.py:38)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in ssm_bwd_rows),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "case": row["case"],
+        "cases": [{k: r[k] for k in ("case", "max_abs_err", "ms",
+                                     "kernel_ms", "plain_ms", "plain64_ms",
+                                     "library_ms", "library", "bound_ms",
+                                     "bound_by")} for r in ssm_bwd_rows]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,7 +8,8 @@ version — the port of ``repro.kernels``.
   flash_attention  — train/prefill attention (causal/window/softcap, GQA),
                      differentiable: its backward is a kernel too
   decode_attention — single-token attention over a ring KV cache
-  ssm_scan         — chunked SSD / gated linear recurrence (Mamba2)
+  ssm_scan         — chunked SSD / gated linear recurrence (Mamba2,
+                     mLSTM), differentiable: its backward is a kernel too
   masked_argmax    — masked, quantized argmax (the determinism gate's
                      kernel fixture)
 

@@ -25,7 +25,7 @@ _BUILD = _PKG.parents[1] / "build" / "kernels"
 
 SOURCES = ("select_step", "tree_predict", "gh_ei", "flash_attention",
            "flash_attention_bwd", "decode_attention", "ssm_scan",
-           "masked_argmax")
+           "ssm_scan_bwd", "masked_argmax")
 
 # -fmad=false: no product is contracted into an FMA; IEEE division and
 # square root; -ftz=true: float32 subnormals flush to zero, the arithmetic

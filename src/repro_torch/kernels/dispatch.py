@@ -19,8 +19,9 @@ held equal to, so the trace can follow the values through it.
 A kernel without a backward kernel returns a tensor with no ``grad_fn``:
 autograd would drop that branch of a loss without a word.  Such an op
 calls :func:`require_no_grad` before it launches, which raises when
-gradients are on and an input asks for one.  ``flash_attention`` alone
-has a backward kernel (``csrc/flash_attention_bwd.cu``).
+gradients are on and an input asks for one.  ``flash_attention`` and
+``ssm_scan`` have backward kernels (``csrc/flash_attention_bwd.cu``,
+``csrc/ssm_scan_bwd.cu``) and differentiate through them instead.
 """
 
 from __future__ import annotations
@@ -65,8 +66,7 @@ def require_no_grad(op: str, *tensors) -> None:
         raise NotImplementedError(
             f"{op}: its CUDA kernel has no backward kernel, so a gradient "
             "through it would be dropped; run it under torch.no_grad() or "
-            "on CPU tensors (the backward kernels are ROADMAP Queue A, A12 "
-            "with B9)")
+            "on CPU tensors (no model's loss differentiates through it)")
 
 
 def declare_kernel(op: str, outputs, plain) -> None:

@@ -5,7 +5,12 @@
 :func:`launch` launches once on prepared arguments (three kernels on the
 current stream: chunk state, state passing, chunk scan), and
 :func:`ssm_scan_cuda` does all of it and counts the call in
-``ssm_scan_cuda.launches`` (and nowhere else).
+``ssm_scan_cuda.launches`` (and nowhere else); with ``want_states`` it
+also returns the states entering each chunk, which the backward reads.
+:func:`plan_bwd`, :func:`prepare_bwd`, :func:`launch_bwd` and
+:func:`ssm_scan_bwd_cuda` are the same for the backward
+(``csrc/ssm_scan_bwd.cu``, float32 only), counted in
+``ssm_scan_bwd_cuda.launches``.
 
 k, q and v are read through their strides, so the views the Mamba2 block
 hands over go in as they are: B and C broadcast over the heads (head
@@ -17,13 +22,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import capi
 
-__all__ = ["PHASES", "Plan", "launch", "plan", "prepare", "smem_bytes",
-           "ssm_scan_cuda"]
+__all__ = ["BWD_PHASES", "BwdPlan", "PHASES", "Plan", "launch", "launch_bwd",
+           "plan", "plan_bwd", "prepare", "prepare_bwd", "smem_bytes",
+           "ssm_scan_bwd_cuda", "ssm_scan_cuda"]
 
 _OP = "ssm_scan"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -185,14 +192,141 @@ def launch(args, phases: int = 7) -> None:
 
 
 def ssm_scan_cuda(k, v, q, log_decay, gate, *, chunk: int,
-                  initial_state=None):
+                  initial_state=None, want_states: bool = False):
     """The scan on the card -> (y, final_state); the contract of
-    :func:`repro_torch.kernels.ssm_scan.ref.linear_scan_ref`."""
-    args, out, _keep = prepare(k, v, q, log_decay, gate, chunk=chunk,
-                               initial_state=initial_state)
+    :func:`repro_torch.kernels.ssm_scan.ref.linear_scan_ref`.  With
+    ``want_states``, (y, final_state, states [B, H, C, N, P]): the state
+    entering each chunk, the scratch that the state-passing kernel leaves
+    (``ref.linear_scan_fwd_ref``'s third output)."""
+    args, out, keep = prepare(k, v, q, log_decay, gate, chunk=chunk,
+                              initial_state=initial_state)
     launch(args)
     ssm_scan_cuda.launches += 1
-    return out
+    return (*out, keep[6]) if want_states else out
 
 
 ssm_scan_cuda.launches = 0
+
+
+_BWD = "ssm_scan_bwd"
+# The backward's kernels, as bits of launch_bwd's ``phases``.
+BWD_PHASES = {"cum": 1, "dstate": 2, "state_pass": 4, "dq": 8, "dkdv": 16,
+              "dlog": 32}
+BWD_ALL = sum(BWD_PHASES.values())
+BWD_TILE = 64            # rows and columns of a backward output tile
+_BWD_STRIDES = ctypes.c_longlong * 22
+
+
+class BwdPlan(NamedTuple):
+    """The backward's geometry, a pure function of the shapes: the tiles
+    that split a sum over blocks, and so its order, are the same on every
+    card."""
+    chunk: int
+    chunks: int
+    n_tiles: int             # 64-column tiles of N: the partial dot products
+
+
+def plan_bwd(b: int, l: int, h: int, n: int, p: int, chunk: int) -> BwdPlan:
+    """The backward's plan for k [b, l, h, n], v [b, l, h, p]; raises
+    ``ValueError`` for more than 65535 chunks or a chunk whose cumsum and
+    gate, beside the tiles, overflow a block's shared memory."""
+    del b, h, p
+    chunk = min(int(chunk), l)
+    chunks = -(-l // chunk)
+    if chunks > MAX_CHUNKS:
+        raise ValueError(f"{_BWD}: {chunks} chunks of {chunk} rows; the "
+                         f"chunk index is a grid dimension (at most "
+                         f"{MAX_CHUNKS})")
+    t = BWD_TILE
+    pad = _round_up(chunk, t)
+    # The dk/dv kernel's: the chunk's cumsum (float64) and gate, two rings
+    # of two 32-deep slabs and a score tile for each 64-row tile of the
+    # chunk, rows padded to 68 floats (csrc/ssm_scan_bwd.cu's tile_smem;
+    # the other kernels hold no more).
+    smem = 12 * pad + 4 * 32 * (t + 4) * 4 + (pad // t) * t * (t + 4) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{_BWD}: chunk {chunk} needs {smem} bytes of "
+                         f"shared memory a block (limit {SMEM_LIMIT})")
+    return BwdPlan(chunk, chunks, -(-n // t))
+
+
+def _bwd_fn():
+    return capi.entry(_BWD, "ssm_scan_bwd_launch",
+                      [capi.P] * 20 + [ctypes.POINTER(ctypes.c_longlong)]
+                      + [capi.I] * 8 + [capi.P])
+
+
+def prepare_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
+                initial_state=None, states, final_state):
+    """The backward's ``(args, (dk, dv, dq, d_log_decay, d_gate,
+    d_initial_state), keep)``: the C entry's arguments, the gradients
+    (float32, contiguous, allocated here with the workspace of
+    :func:`plan_bwd`) and the tensors ``args`` points into.  ``states``
+    and ``final_state`` are the forward's (:func:`ssm_scan_cuda` with
+    ``want_states``); ``initial_state`` only says whether there was one."""
+    dev = capi.require_cuda(_BWD, k)
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    f32 = torch.float32
+    pl = plan_bwd(b, l, h, n, p, chunk)
+    for name, t, shape in (
+            ("k", k, (b, l, h, n)), ("q", q, (b, l, h, n)),
+            ("v", v, (b, l, h, p)), ("dy", dy, (b, l, h, p)),
+            ("log_decay", log_decay, (b, l, h)), ("gate", gate, (b, l, h))):
+        capi.check(_BWD, name, t, f32, shape, dev, contiguous=False)
+    for name, t, shape in (("states", states, (b, h, pl.chunks, n, p)),
+                           ("final_state", final_state, (b, h, n, p))):
+        capi.check(_BWD, name, t, f32, shape, dev)
+    if d_final is not None:
+        d_final = d_final.to(f32).contiguous()
+        capi.check(_BWD, "d_final", d_final, f32, (b, h, n, p), dev)
+    _bwd_fn()                 # built (or its build error raised) first
+    dk, dq = (torch.empty((b, l, h, n), dtype=f32, device=dev)
+              for _ in range(2))
+    dv = torch.empty((b, l, h, p), dtype=f32, device=dev)
+    dld, dg = (torch.empty((b, l, h), dtype=f32, device=dev)
+               for _ in range(2))
+    d_init = torch.empty((b, h, n, p), dtype=f32, device=dev)
+    gs = torch.empty((b, h, pl.chunks, n, p), dtype=f32, device=dev)
+    # float64 cumsum as opaque 8-byte scratch, as the forward's.
+    cum = torch.empty((b, h, pl.chunks, _round_up(pl.chunk, BWD_TILE)),
+                      dtype=torch.int64, device=dev)
+    etot = torch.empty((b, h, pl.chunks), dtype=f32, device=dev)
+    parts = torch.empty((2, pl.n_tiles, b, h, l), dtype=f32, device=dev)
+    strides = _BWD_STRIDES(*k.stride(), *q.stride(), *v.stride(),
+                           *dy.stride(), *log_decay.stride(),
+                           *gate.stride())
+    args = (k.data_ptr(), q.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
+            gate.data_ptr(), dy.data_ptr(), capi.ptr(d_final),
+            states.data_ptr(), final_state.data_ptr(), dk.data_ptr(),
+            dq.data_ptr(), dv.data_ptr(), dld.data_ptr(), dg.data_ptr(),
+            d_init.data_ptr(), gs.data_ptr(), cum.data_ptr(),
+            etot.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+            strides, int(initial_state is not None), b, l, h, n, p,
+            pl.chunk, capi.stream(dev))
+    keep = (k, v, q, log_decay, gate, dy, d_final, states, final_state, gs,
+            cum, etot, parts)
+    return args, (dk, dv, dq, dld, dg, d_init), keep
+
+
+def launch_bwd(args, phases: int = BWD_ALL) -> None:
+    """One launch of the backward's kernels named by ``phases`` (bits of
+    :data:`BWD_PHASES`; all of them by default) on prepared arguments;
+    does not count."""
+    capi.raise_on_error(_BWD, _bwd_fn()(*args[:-1], phases, args[-1]))
+
+
+def ssm_scan_bwd_cuda(k, v, q, log_decay, gate, dy, d_final=None, *,
+                      chunk: int, initial_state=None, states, final_state):
+    """(dk, dv, dq, d_log_decay, d_gate, d_initial_state) on the card; the
+    contract of :func:`repro_torch.kernels.ssm_scan.ref.linear_scan_bwd_ref`
+    with the forward's states given."""
+    args, grads, _keep = prepare_bwd(
+        k, v, q, log_decay, gate, dy, d_final, chunk=chunk,
+        initial_state=initial_state, states=states, final_state=final_state)
+    launch_bwd(args)
+    ssm_scan_bwd_cuda.launches += 1
+    return grads
+
+
+ssm_scan_bwd_cuda.launches = 0

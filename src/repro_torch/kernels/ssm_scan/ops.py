@@ -1,13 +1,66 @@
-"""Dispatching entries of the chunked SSD scan."""
+"""Dispatching entries of the chunked SSD scan, and its gradient.
+
+Without gradients the op is the forward alone: the kernel for CUDA
+tensors, the plain version for CPU tensors (``kernels.dispatch``).  When
+grad mode is on and an input requires grad, the call goes through
+:class:`LinearScan`, a ``torch.autograd.Function`` that keeps k, v, q,
+log_decay, gate, the final state and the states entering each chunk: on
+the card its forward is the kernel (whose scratch holds those states)
+and its backward the backward kernel (``csrc/ssm_scan_bwd.cu``); on the
+CPU, or with ``force="ref"``, both are the plain versions
+(``ref.linear_scan_fwd_ref``, ``ref.linear_scan_bwd_ref``).  Training
+runs float32: a bfloat16 input that requires grad raises.
+"""
 
 from __future__ import annotations
 
-from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
-                                         resolve_mode)
+import torch
+
+from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.ssm_scan import kernel as _kernel
 from repro_torch.kernels.ssm_scan import ref as _ref
 
-__all__ = ["linear_scan", "ssm_scan"]
+__all__ = ["LinearScan", "linear_scan", "ssm_scan"]
+
+
+class LinearScan(torch.autograd.Function):
+    """The scan whose backward is the backward kernel on the card (mode
+    "kernel") or the plain backward (mode "ref").  An unused output's
+    gradient comes as None: a final state that no loss reads gives the
+    backward no dS_final."""
+
+    @staticmethod
+    def forward(ctx, k, v, q, log_decay, gate, initial_state, mode, chunk):
+        args = (k, v, q, log_decay, gate)
+        kw = dict(chunk=chunk, initial_state=initial_state)
+        if mode == "kernel":
+            y, s, states = _kernel.ssm_scan_cuda(*args, want_states=True,
+                                                 **kw)
+            declare_kernel("ssm_scan", (y, s),
+                           lambda: _ref.linear_scan_ref(*args, **kw))
+        else:
+            y, s, states = _ref.linear_scan_fwd_ref(*args, **kw)
+        ctx.save_for_backward(*args, initial_state, states, s)
+        ctx.mode, ctx.chunk = mode, chunk
+        ctx.set_materialize_grads(False)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        k, v, q, log_decay, gate, s0, states, s = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        args = (k, v, q, log_decay, gate, dy.contiguous(), d_final)
+        kw = dict(chunk=ctx.chunk, initial_state=s0, states=states,
+                  final_state=s)
+        if ctx.mode == "kernel":
+            grads = _kernel.ssm_scan_bwd_cuda(*args, **kw)
+            declare_kernel("ssm_scan_bwd", grads,
+                           lambda: _ref.linear_scan_bwd_ref(*args, **kw))
+        else:
+            grads = _ref.linear_scan_bwd_ref(*args, **kw)
+        *grads, d_init = grads
+        return (*grads, d_init if s0 is not None else None, None, None)
 
 
 def linear_scan(k, v, q, log_decay, gate, *, chunk: int,
@@ -17,13 +70,22 @@ def linear_scan(k, v, q, log_decay, gate, *, chunk: int,
 
     Any L: the tail is padded to a whole chunk with gate 0 and log-decay 0,
     which leaves the state as it is.  The kernel for CUDA tensors, the
-    plain version for CPU tensors (see ``kernels.dispatch``).
+    plain version for CPU tensors (see ``kernels.dispatch``);
+    differentiable through :class:`LinearScan` (float32 only).
     """
     kw = dict(chunk=chunk, initial_state=initial_state)
+    mode = resolve_mode(force, k.device, op="ssm_scan")
+    ins = (k, v, q, log_decay, gate, initial_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ins):
+        if any(t is not None and t.dtype != torch.float32
+               for t in (k, v, q)):
+            raise TypeError(f"ssm_scan: a gradient needs float32 inputs "
+                            f"(training runs float32), got {k.dtype}")
+        return LinearScan.apply(*ins, mode, chunk)
     plain = lambda: _ref.linear_scan_ref(k, v, q, log_decay, gate, **kw)
-    if resolve_mode(force, k.device, op="ssm_scan") == "ref":
+    if mode == "ref":
         return plain()
-    require_no_grad("ssm_scan", k, v, q, log_decay, gate, initial_state)
     out = _kernel.ssm_scan_cuda(k, v, q, log_decay, gate, **kw)
     declare_kernel("ssm_scan", out, plain)
     return out

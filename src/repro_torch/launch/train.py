@@ -3,23 +3,30 @@ state -> ``run_training`` with the fault-tolerance kit.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
       --batch 2 --seq 2048 --microbatches 2 --steps 4
-  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --layers 27 --batch 2 --seq 2048 --microbatches 2 --steps 3 --ckpt none
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
       --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
-The reference's flags plus ``--device`` (the card unless asked).  The
-state is drawn on the device from a seeded generator and the step donates
-it (updates in place, the reference's ``donate_argnums``).  ``--mesh``
+The reference's flags plus ``--device`` (the card unless asked) and
+``--layers N``, which cuts the config's depth to N blocks (zamba2-7b's
+81 at float32 with AdamW's moments do not fit one card); the run prints
+the cut under ``reduced``.  The state is drawn on the device from a
+seeded generator and the step donates it (updates in place, the
+reference's ``donate_argnums``).  ``--mesh``
 and a ``--remat`` other than ``none`` raise: sharding and rematerialisation
 are ROADMAP A12's later items.  ``--ckpt none`` runs without checkpoints.
 Prints the reference's JSON keys (``final_step``, ``preempted``,
 ``stragglers``, ``final_loss``) and ``step_s`` (the median step after the
 first, which builds the kernels), ``tokens_per_s``, ``peak_gb`` (peak
-allocated device memory) and ``device``.
+allocated device memory), ``device``, ``layers`` and ``reduced`` (the
+depth cut as ``{"n_layers": [published, run]}``, or null).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -64,6 +71,14 @@ def run(args) -> dict:
             "(ROADMAP Queue A, A12)")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    reduced = None
+    if args.layers is not None and args.layers != cfg.n_layers:
+        if not 0 < args.layers < cfg.n_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.n_layers}; a cut keeps 1 to "
+                             f"{cfg.n_layers - 1}")
+        reduced = {"n_layers": [cfg.n_layers, args.layers]}
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     flags = RuntimeFlags(attn_impl="naive" if args.seq <= 512 else "chunked",
                          loss_chunks=4, compute_dtype="float32",
@@ -96,7 +111,8 @@ def run(args) -> dict:
             "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if device.type == "cuda" else None),
             "device": (torch.cuda.get_device_name(device)
-                       if device.type == "cuda" else "cpu")}
+                       if device.type == "cuda" else "cpu"),
+            "layers": cfg.n_layers, "reduced": reduced}
 
 
 def main(argv=None):
@@ -104,6 +120,9 @@ def main(argv=None):
     ap.add_argument("--arch", choices=ARCHS, required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many blocks (printed as "
+                         "'reduced')")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

@@ -3,9 +3,11 @@ for every family of the reference.
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods close over the
 architecture config; ``RuntimeFlags`` stay explicit arguments, as in the
-reference.  ``loss`` is ``transformer_loss`` for the transformer families;
-the hybrid and ssm families' losses run through ``ssm_scan``, which has no
-backward kernel yet, and raise ``NotImplementedError``.
+reference.  ``loss`` is ``transformer_loss`` for the transformer families,
+``zamba_loss`` for the hybrid and ``xlstm_loss`` for the ssm family; each
+differentiates through the kernels' backward kernels on the card
+(``flash_attention``'s and ``ssm_scan``'s) and through their plain
+backwards on the CPU.
 """
 
 from __future__ import annotations
@@ -51,21 +53,12 @@ class Model:
         return count_params(self.specs())
 
 
-def _no_ssm_backward(family):
-    def loss(params, batch, flags):
-        raise NotImplementedError(
-            f"the {family} family's loss runs through ssm_scan, whose "
-            "backward kernel is not written yet (ROADMAP Queue A, A12: "
-            "zamba_loss and xlstm_loss with B9's ssm_scan backward)")
-    return loss
-
-
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "hybrid":
         return Model(
             cfg=cfg,
             specs=lambda: zb.zamba_specs(cfg),
-            loss=_no_ssm_backward("hybrid"),
+            loss=lambda p, b, f: zb.zamba_loss(p, cfg, f, b),
             prefill=lambda p, b, f, cl: zb.zamba_prefill(p, cfg, f, b, cl),
             decode=lambda p, c, t, pos, f: zb.zamba_decode(p, cfg, f, c, t,
                                                            pos),
@@ -89,7 +82,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(
             cfg=cfg,
             specs=lambda: xm.xlstm_specs(cfg),
-            loss=_no_ssm_backward("ssm"),
+            loss=lambda p, b, f: xm.xlstm_loss(p, cfg, f, b),
             prefill=lambda p, b, f, cl: xm.xlstm_prefill(p, cfg, f, b, cl),
             decode=lambda p, c, t, pos, f: xm.xlstm_decode_step(p, cfg, f, c,
                                                                 t, pos),

@@ -19,7 +19,13 @@ from repro_torch.models.params import spec
 
 __all__ = ["rmsnorm_spec", "rmsnorm", "layernorm_spec", "layernorm",
            "mlp_specs", "mlp", "rope", "mrope", "embed_specs", "embed",
-           "unembed", "causal_conv1d"]
+           "unembed", "causal_conv1d", "wide"]
+
+
+def wide(x):
+    """``x`` in float32, or as it is where it is wider (float64: the
+    float64 yardstick of a training step keeps every digit)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def rmsnorm_spec(d: int, layers: int | None = None):
@@ -30,11 +36,12 @@ def rmsnorm_spec(d: int, layers: int | None = None):
 
 
 def rmsnorm(w, x, eps: float = 1e-6):
-    """Gemma-style RMSNorm, ``(1 + w)`` scale, float32 inside."""
+    """Gemma-style RMSNorm, ``(1 + w)`` scale, float32 (at least)
+    inside."""
     dt = x.dtype
-    x = x.to(torch.float32)
+    x = wide(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return ((1.0 + w.to(torch.float32)) * x).to(dt)
+    return ((1.0 + wide(w)) * x).to(dt)
 
 
 def layernorm_spec(d: int, layers: int | None = None):
@@ -152,7 +159,7 @@ def unembed(p, x, *, softcap: float | None = None):
         logits = x @ p["unembed"]
     else:
         logits = x @ p["tokens"].T                   # tied
-    logits = logits.to(torch.float32)
+    logits = wide(logits)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

@@ -3,7 +3,8 @@ in PyTorch.
 
 ``chunked_linear_scan`` is the ``ssm_scan`` op's entry with the final
 state: the CUDA kernel (``csrc/ssm_scan.cu``) for CUDA tensors, the plain
-version (``kernels/ssm_scan/ref.py``) for CPU tensors.  ``mamba2_decode``
+version (``kernels/ssm_scan/ref.py``) for CPU tensors; with gradients on,
+its backward is ``csrc/ssm_scan_bwd.cu`` on the card.  ``mamba2_decode``
 is one recurrent step in plain PyTorch; no TPU kernel covers it.
 """
 

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (causal_conv1d, mlp, mlp_specs,
-                                       rmsnorm, rmsnorm_spec)
+                                       rmsnorm, rmsnorm_spec, wide)
 from repro_torch.models.params import spec
 from repro_torch.models.ssm import chunked_linear_scan
 
@@ -62,10 +62,9 @@ def mlstm_specs(cfg):
 
 def _mlstm_gates(p, xc):
     """log forget (<= 0) and clipped-exp input gate.  xc [B,L,d_in] ->
-    [B,L,nh] each, float32."""
-    logf = F.logsigmoid((xc @ p["wf"]).to(torch.float32) + p["bf"])
-    i = torch.exp(torch.clamp_max((xc @ p["wi"]).to(torch.float32)
-                                  + p["bi"], _ICLIP))
+    [B,L,nh] each, float32 (float64 for float64 inputs)."""
+    logf = F.logsigmoid(wide(xc @ p["wf"]) + p["bf"])
+    i = torch.exp(torch.clamp_max(wide(xc @ p["wi"]) + p["bi"], _ICLIP))
     return logf, i
 
 
@@ -171,8 +170,7 @@ def _slstm_cell(p, pre_t, hcnm):
     exp(ft + m - m_new) = exp(-inf) = 0."""
     h, c, n, m = hcnm
     rec = torch.einsum("bkd,gkde->bgke", h, p["r"])  # [B,4,nh,hd]
-    zt, it, ft, ot = torch.unbind((pre_t + rec + p["b"]).to(torch.float32),
-                                  dim=1)
+    zt, it, ft, ot = torch.unbind(wide(pre_t + rec + p["b"]), dim=1)
     z = torch.tanh(zt)
     o = torch.sigmoid(ot)
     m_new = torch.maximum(ft + m, it)                # exp-gating stabilizer
@@ -198,9 +196,10 @@ def slstm_block(p, x, cfg, state=None):
     xin = rmsnorm(p["norm"], x, cfg.norm_eps)
     pre = torch.einsum("bld,dgke->blgke", xin, p["w_in"])  # [B,L,4,nh,hd]
     if state is None:
-        zero = torch.zeros((b, nh, hd), dtype=torch.float32, device=x.device)
+        dt = torch.promote_types(x.dtype, torch.float32)
+        zero = torch.zeros((b, nh, hd), dtype=dt, device=x.device)
         state = (zero, zero, zero, torch.full((b, nh, hd), -torch.inf,
-                                              device=x.device))
+                                              dtype=dt, device=x.device))
     hs = []
     for t in range(l):
         state = _slstm_cell(p, pre[:, t], state)

@@ -4,8 +4,12 @@ path of ``repro.models.xlstm_model`` in PyTorch.
 Parameters are the reference's tree: ``blocks`` is a list of per-block
 dicts, in block order.  Serving state is a list with one entry a block: a
 dict (conv, c) for an mLSTM block and a 4-tuple (h, c, n, m) for an sLSTM
-block; ``xlstm_cache_axes`` names their axes.  Training (``xlstm_loss``
-and its remat) waits for ``ssm_scan``'s backward kernel (ROADMAP A12).
+block; ``xlstm_cache_axes`` names their axes.  ``xlstm_loss`` is the
+reference's training loss over the same forward (``_forward``) as
+``xlstm_prefill``: the mLSTM blocks' gradients come from ``ssm_scan``'s
+backward kernel on the card (its plain backward on the CPU), the sLSTM's
+loop over time trains through plain autograd (no TPU kernel computes
+it).  Rematerialisation (``flags.remat``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,12 +19,13 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embed_specs, rmsnorm,
                                        rmsnorm_spec, unembed)
+from repro_torch.models.losses import chunked_ce_from_hidden
 from repro_torch.models.xlstm import (mlstm_block, mlstm_decode, mlstm_specs,
                                       mlstm_state_shapes, slstm_block,
                                       slstm_decode, slstm_specs,
                                       slstm_state_shapes)
 
-__all__ = ["xlstm_specs", "xlstm_prefill", "xlstm_decode_step",
+__all__ = ["xlstm_specs", "xlstm_loss", "xlstm_prefill", "xlstm_decode_step",
            "xlstm_cache_shapes", "xlstm_cache_axes", "block_kinds"]
 
 
@@ -61,18 +66,42 @@ def xlstm_cache_axes(cfg: ModelConfig):
     return out
 
 
+def _forward(params, cfg, flags, batch, states=None):
+    """The blocks in order over the whole sequence -> (final-normed hidden
+    [B, S, D], every block's final state).  ``states`` (one entry a block,
+    as ``xlstm_cache_shapes``) start the blocks; None starts them empty."""
+    x = _embed(params, cfg, flags, batch["tokens"])
+    new_states = []
+    for i, (kind, p) in enumerate(zip(block_kinds(cfg), params["blocks"])):
+        fn = mlstm_block if kind == "mlstm" else slstm_block
+        x, st = fn(p, x, cfg, None if states is None else states[i])
+        new_states.append(st)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), new_states
+
+
+def xlstm_loss(params, cfg, flags, batch, aux_weight: float = 0.0):
+    """(token-mean CE, {"ce"}) of the next-token targets, in
+    ``flags.loss_chunks`` chunks; ``aux_weight`` is the reference's and
+    unused.  ``flags.remat`` other than "none" raises (ROADMAP A12's third
+    item)."""
+    del aux_weight
+    if flags.remat != "none":
+        raise NotImplementedError(
+            f"remat={flags.remat!r}: rematerialisation is not ported yet "
+            "(ROADMAP Queue A, A12)")
+    hidden, _ = _forward(params, cfg, flags, batch)
+    loss = chunked_ce_from_hidden(params["embed"], hidden, batch["targets"],
+                                  batch.get("loss_mask"),
+                                  n_chunks=flags.loss_chunks)
+    return loss, {"ce": loss}
+
+
 def xlstm_prefill(params, cfg, flags, batch, cache_len: int = 0):
     """The parallel forward for the last position's logits, with every
     block's final state.  ``flags.analysis_unroll`` is accepted and
     ignored.  Returns (logits [B, 1, V] float32, states)."""
-    x = _embed(params, cfg, flags, batch["tokens"])
-    states = []
-    for kind, p in zip(block_kinds(cfg), params["blocks"]):
-        fn = mlstm_block if kind == "mlstm" else slstm_block
-        x, st = fn(p, x, cfg)
-        states.append(st)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x[:, -1:, :]), states
+    hidden, states = _forward(params, cfg, flags, batch)
+    return unembed(params["embed"], hidden[:, -1:, :]), states
 
 
 def xlstm_decode_step(params, cfg, flags, states, tokens, pos):

@@ -14,8 +14,10 @@ the JAX package one array to one tensor.  Serving state: per-layer Mamba2
 (conv, ssm) states stacked [n_layers, ...] and a per-site KV ring cache
 stacked [n_sites, B, T, KH, D] for the shared block.  ``zamba_decode``
 updates the caches in place and returns them; ``zamba_cache_axes`` names
-their axes.  Training (``zamba_loss``) waits for ``ssm_scan``'s backward
-kernel (ROADMAP A12).
+their axes.  ``zamba_loss`` is the reference's training loss over the
+same forward (``_forward``) as ``zamba_prefill``, under autograd: its
+gradients come from the backward kernels of ``ssm_scan`` and ``flash_attention`` on the card and
+from their plain backwards on the CPU.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
                                        rmsnorm, rmsnorm_spec, rope, unembed)
+from repro_torch.models.losses import chunked_ce_from_hidden
 from repro_torch.models.params import spec
 from repro_torch.models.ssm import (mamba2_block, mamba2_decode,
                                     mamba2_specs, mamba2_state_shapes)
 
-__all__ = ["zamba_specs", "zamba_prefill", "zamba_decode",
+__all__ = ["zamba_specs", "zamba_loss", "zamba_prefill", "zamba_decode",
            "zamba_cache_shapes", "zamba_cache_axes"]
 
 
@@ -88,6 +91,43 @@ def _shared_attn(p, x, cfg, positions, cache=None, pos=None):
     return x, new_c
 
 
+def _forward(params, cfg, flags, batch):
+    """The parallel forward -> (final-normed hidden [B, S, D], each
+    layer's Mamba2 state dict (conv, ssm), each site's (k, v) [B, S, KH,
+    D]): each group of ``attn_every`` Mamba2 blocks followed by the shared
+    block, then the tail blocks."""
+    dt = getattr(torch, flags.compute_dtype)
+    x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale,
+              d=cfg.d_model).to(dt)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    states, kvs = [], []
+    for i in range(cfg.n_layers):
+        y, st = mamba2_block(_layer(params, i), x, cfg)
+        x = x + y
+        states.append(st)
+        if (i + 1) % cfg.attn_every == 0:        # the end of a group
+            x, kv = _shared_attn(params["shared"], x, cfg, positions)
+            kvs.append(kv)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), states, kvs
+
+
+def zamba_loss(params, cfg, flags, batch, aux_weight: float = 0.0):
+    """(token-mean CE, {"ce"}) of the next-token targets, in
+    ``flags.loss_chunks`` chunks; ``aux_weight`` is the reference's and
+    unused (no router).  ``flags.remat`` other than "none" raises
+    (rematerialisation is ROADMAP A12's third item)."""
+    del aux_weight
+    if flags.remat != "none":
+        raise NotImplementedError(
+            f"remat={flags.remat!r}: rematerialisation is not ported yet "
+            "(ROADMAP Queue A, A12)")
+    hidden, _, _ = _forward(params, cfg, flags, batch)
+    loss = chunked_ce_from_hidden(params["embed"], hidden, batch["targets"],
+                                  batch.get("loss_mask"),
+                                  n_chunks=flags.loss_chunks)
+    return loss, {"ce": loss}
+
+
 def zamba_cache_shapes(cfg: ModelConfig, batch: int, cache_len: int):
     n_sites, _ = _sites(cfg)
     ss = mamba2_state_shapes(cfg, batch)
@@ -141,42 +181,22 @@ def zamba_decode(params, cfg, flags, caches, tokens, pos):
 
 
 def zamba_prefill(params, cfg, flags, batch, cache_len: int):
-    """The parallel forward for the last position's logits, with every
-    state: each Mamba2 layer's (conv, ssm) from its chunked scan, each
-    site's K/V ring-placed into a cache of ``cache_len`` slots.
+    """The parallel forward (``_forward``) for the last position's logits,
+    with every state: each Mamba2 layer's (conv, ssm) from its chunked
+    scan, each site's K/V ring-placed into a cache of ``cache_len`` slots.
 
     The reference projects a site's K/V a second time for the cache; the
     port keeps the ones the site's attention computed, the same operations
     on the same inputs.  Returns (logits [B, 1, V] float32, caches).
     """
-    dt = getattr(torch, flags.compute_dtype)
-    x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale,
-              d=cfg.d_model).to(dt)
-    s_len = x.shape[1]
-    positions = torch.arange(s_len, device=x.device)[None, :]
+    hidden, states, kvs = _forward(params, cfg, flags, batch)
+    s_len = hidden.shape[1]
     if cfg.window is not None:
         cache_len = min(cache_len, cfg.window)
-    n_sites, _ = _sites(cfg)
-    convs, ssms, kcs, vcs = [], [], [], []
-
-    def site(x):
-        x, (kk, vv) = _shared_attn(params["shared"], x, cfg, positions)
-        kcs.append(attn_mod.ring_place(kk, s_len, cache_len))
-        vcs.append(attn_mod.ring_place(vv, s_len, cache_len))
-        return x
-
-    # The shared block before layers attn_every, 2·attn_every, ...
-    for i in range(cfg.n_layers):
-        if i and i % cfg.attn_every == 0:
-            x = site(x)
-        y, st = mamba2_block(_layer(params, i), x, cfg)
-        x = x + y
-        convs.append(st["conv"])
-        ssms.append(st["ssm"])
-    while len(kcs) < n_sites:                        # site after last group
-        x = site(x)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], x[:, -1:, :])
-    caches = {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
-              "attn_k": torch.stack(kcs), "attn_v": torch.stack(vcs)}
+    ring = lambda t: attn_mod.ring_place(t, s_len, cache_len)
+    logits = unembed(params["embed"], hidden[:, -1:, :])
+    caches = {"conv": torch.stack([st["conv"] for st in states]),
+              "ssm": torch.stack([st["ssm"] for st in states]),
+              "attn_k": torch.stack([ring(k) for k, _ in kvs]),
+              "attn_v": torch.stack([ring(v) for _, v in kvs])}
     return logits, caches

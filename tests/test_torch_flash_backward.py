@@ -166,15 +166,11 @@ def _no_backward_calls():
     from repro_torch.kernels.gh_ei import ops as gh
     from repro_torch.kernels.masked_argmax import ops as am
     from repro_torch.kernels.select_step import ops as ss
-    from repro_torch.kernels.ssm_scan import ops as sc
     from repro_torch.kernels.tree_predict import ops as tp
 
     g = lambda *shape: torch.rand(shape, requires_grad=True)
     feat = torch.zeros((2, 2, 2), dtype=torch.int32)
     return [
-        (sc, "ssm_scan_cuda", lambda: sc.linear_scan(
-            g(1, 8, 2, 4), g(1, 8, 2, 4), g(1, 8, 2, 4), g(1, 8, 2),
-            g(1, 8, 2), chunk=4)),
         (da, "decode_attention_cuda", lambda: da.decode_attention(
             g(1, 2, 4), g(1, 1, 8, 4), g(1, 1, 8, 4), 5)),
         (tp, "tree_predict_cuda", lambda: tp.tree_predict(
@@ -189,7 +185,7 @@ def _no_backward_calls():
     ]
 
 
-@pytest.mark.parametrize("i", range(6), ids=["ssm_scan", "decode_attention",
+@pytest.mark.parametrize("i", range(5), ids=["decode_attention",
                                               "tree_predict", "gh_ei",
                                               "masked_argmax", "select_step"])
 def test_ops_without_backward_kernel_refuse_a_gradient(i, monkeypatch):

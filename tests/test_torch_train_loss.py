@@ -12,9 +12,8 @@ checkpointed chunks).  The loss, ``ce`` and ``aux`` are held at rtol
 1e-6, and each gradient leaf at 5e-6 of its largest magnitude (the two
 packages sum in other orders; float32 keeps about 6e-8 a rounding).  On
 the CPU the attention's gradient is the plain backward through
-``kernels.flash_attention.ops.FlashAttention``.  ``Model.loss`` of the
-hybrid and ssm families raises: their ``ssm_scan`` has no backward kernel
-yet.
+``kernels.flash_attention.ops.FlashAttention``.  The hybrid and ssm
+families' losses are held in ``tests/test_torch_train_ssm.py``.
 """
 
 import jax
@@ -70,13 +69,6 @@ def test_loss_and_gradients_match_jax(arch):
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=GRAD_REL * float(np.abs(w).max()))
-
-
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m"])
-def test_ssm_families_have_no_loss_yet(arch):
-    model = build_model(get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="ssm_scan"):
-        model.loss({}, {}, FLAGS)
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-v3-671b",
