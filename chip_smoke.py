@@ -41,7 +41,10 @@ Without it, phases one line each with its times, then two JSON lines:
    global, causal and non-causal, bf16 and f32) and bf16 edge cases of
    the tensor-core kernel (S and T off the tiles, D 112 and 100, MQA) and
    float32 ones at the rest of the zoo's widths (D 192 with 128 heads,
-   DeepSeek-V3's MLA; D 80 non-causal, HuBERT's; D 192 windowed),
+   DeepSeek-V3's MLA; D 80 non-causal, HuBERT's; D 192 windowed) and at
+   gemma-2b's training shape (MQA, D 256), each float32 case with the
+   split-TF32 kernel's plan (``kernel.fwd_plan``) and its split-TF32
+   bound beside the float32 one,
    decode_attention on gemma2-9b caches at B = 8 (global T = 8192 and
    local ring T = 4096, each full and filling, and the global one full
    with Gemma2's softcap; splits whose slots are all dead, every slot dead, a
@@ -723,17 +726,21 @@ FLASH_EDGES = (
     ("MQA KH 1, D 128, S = T = 777, causal, window 200", 8, 1, 777, 777, 128,
      True, 200, None))
 # flash_attention in float32 at the widths the rest of the zoo gives the
-# CUDA-core kernel: DeepSeek-V3's MLA prefill (q/k 128 + 64 = 192 wide, v
+# split-TF32 kernel: DeepSeek-V3's MLA prefill (q/k 128 + 64 = 192 wide, v
 # zero-padded from 128 to 192, 128 heads; src/repro/models/mla.py:70-73),
 # the DP = 192 instantiation, and HuBERT's (D 80, non-causal), which runs
-# DP = 128 with 48 lanes of the tile idle; a ragged, windowed D 192 case.
+# DP = 128 with the 8-column blocks past D skipped; a ragged, windowed D
+# 192 case; gemma-2b's training shape (the forward of each of its 18
+# layers, twice a step in 2 microbatches).
 FLASH_F32_EDGES = (
     ("deepseek-v3 MLA: D 192 (v zero-padded from 128), H = KH = 128, "
      "S = T = 2048, causal", 128, 128, 2048, 2048, 192, True, None, None),
     ("hubert-xlarge: D 80, H = KH = 16, S = T = 1000, non-causal", 16, 16,
      1000, 1000, 80, False, None, None),
     ("D 192, GQA 4, S = T = 777, causal, window 300", 8, 2, 777, 777, 192,
-     True, 300, None))
+     True, 300, None),
+    ("gemma-2b training: H 8, KH 1 (MQA), S = T = 2048, D 256, causal", 8,
+     1, 2048, 2048, 256, True, None, None))
 # zamba2-7b's decode shape (B 4, KH 32, G 1, D 112, f32) through the
 # [B, T, KH, D] ring cache's transposed view, as the model calls it.
 ZAMBA_DECODE = dict(b=4, kh=32, t=1032, d=112, pos=1031)
@@ -1040,8 +1047,11 @@ def _attention_cases(device):
                 launch=fa.launch, compare=_close(*tol),
                 nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
                 ops=4 * d * h * pairs, peak=peak, library=lib, reps=5,
-                plain_reps=3, extra=dict(B=1, H=h, KH=kh, S=s, T=s, D=d,
-                                         live_pairs_per_head=pairs)))
+                plain_reps=3, extra=dict(
+                    B=1, H=h, KH=kh, S=s, T=s, D=d,
+                    live_pairs_per_head=pairs,
+                    **_f32_flash_extra(dtype, 1, h, kh, s, s, d, kw,
+                                       4 * d * h * pairs, q, k, v))))
 
     edges = [(e, torch.bfloat16, BF16_TOL, BF16_OPS_PER_S)
              for e in FLASH_EDGES]
@@ -1076,9 +1086,11 @@ def _attention_cases(device):
             launch=fa.launch, compare=_close(*tol),
             nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
             ops=4 * d_ * h_ * pairs, peak=peak, library=lib,
-            reps=20, plain_reps=3, extra=dict(B=1, H=h_, KH=kh_, S=s_, T=t_,
-                                              D=d_,
-                                              live_pairs_per_head=pairs)))
+            reps=20, plain_reps=3, extra=dict(
+                B=1, H=h_, KH=kh_, S=s_, T=t_, D=d_,
+                live_pairs_per_head=pairs,
+                **_f32_flash_extra(dtype, 1, h_, kh_, s_, t_, d_, kw,
+                                   4 * d_ * h_ * pairs, q, k, v))))
 
     # decode_attention: gemma2-9b at B = 8, global cache and local ring.
     b = DECODE_B
@@ -1196,6 +1208,22 @@ def _xlstm_scan_case(device, x=XLSTM_SCAN):
             got, want, exact, SSM_PLAIN_TOL["float32"])[:2],
         nbytes=nbytes, ops=ops, peak=peak, reps=20, plain_reps=5,
         extra=dict(B=b, L=l, H=h, N=n, P=p, chunk=chunk, **work))
+
+
+def _f32_flash_extra(dtype, b, h, kh, s, t, d, kw, ops, q, k, v):
+    """A float32 flash case's split-TF32 plan (``kernel.fwd_plan``) and its
+    bound in split TF32 (three TF32 products for each float32 one, at
+    495 TFLOP/s, or the bytes); nothing for bf16."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    if dtype != torch.float32:
+        return {}
+    plan = fa.fwd_plan(b, h, kh, s, t, d, kw["causal"], kw["window"])
+    byte_ms = (2 * _tensor_bytes(q) + _tensor_bytes(k, v)) / \
+        HBM_BYTES_PER_S * 1e3
+    return dict(bound_split_tf32_ms=max(3 * ops / TF32_OPS_PER_S * 1e3,
+                                        byte_ms),
+                plan=plan._asdict())
 
 
 def _live_pairs(s, t, causal, window):
@@ -2369,11 +2397,14 @@ def _check_flash(calls, report, label, device):
         lib_ms = _launch_ms(lib, n=10)
         b_, h_, s_, d_ = q.shape
         pairs = _live_pairs(s_, k.shape[2], kw["causal"], kw["window"])
+        ops = 4 * d_ * h_ * b_ * pairs
         report("flash_attention", f"{label(i)}, f32", err, bad, ms,
                plain_ms, lib_ms, 2 * _tensor_bytes(q) + _tensor_bytes(k, v),
-               4 * d_ * h_ * b_ * pairs, B=b_, H=h_, KH=k.shape[1], S=s_,
+               ops, B=b_, H=h_, KH=k.shape[1], S=s_,
                T=k.shape[2], D=d_, window=kw.get("window"),
-               softcap=kw.get("softcap"))
+               softcap=kw.get("softcap"),
+               **_f32_flash_extra(q.dtype, b_, h_, k.shape[1], s_,
+                                  k.shape[2], d_, kw, ops, q, k, v))
         del prep, o, keep
 
 
@@ -4265,7 +4296,7 @@ def _op_summary(rows, launches):
 
 # Kernels whose register budget is part of their design: -Xptxas -v must
 # show no spill for any of their instantiations.
-NO_SPILL = ("select_step_kernel", "flash_bf16_kernel",
+NO_SPILL = ("select_step_kernel", "flash_bf16_kernel", "flash_tf32_kernel",
             "decode_split_kernel", "decode_combine_kernel",
             "ssm_chunk_state_kernel", "ssm_state_pass_kernel",
             "ssm_chunk_scan_kernel", "masked_argmax_kernel",

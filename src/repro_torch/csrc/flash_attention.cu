@@ -21,20 +21,48 @@
 // Bound on the H100: operations.  A gemma2-9b prefill (H = 16, KH = 8,
 // D = 256, S = T = 8192, causal) needs 4·D·H·(live pairs) = 5.5e11 FLOP
 // of the two products against 0.2-0.4 GB of q, k, v and o: 0.556 ms at
-// the bf16 tensor-core peak (989 TFLOP/s), 8.2 ms at float32's 67.
-// Two kernels, chosen by the input type:
+// the bf16 tensor-core peak (989 TFLOP/s), 8.2 ms at float32's 67 on the
+// CUDA cores; float32 in split TF32 (three products each at 495 TFLOP/s)
+// 3.3 ms.  Two kernels, chosen by the input type:
 //
-// float32 (`flash_kernel`): on the CUDA cores (explicit fmaf: the build
-// keeps -fmad=false), since TF32 would break the float32 contract.  One
-// block of 256 threads per (batch·head, 64-row query tile), heaviest
-// causal tiles first.  The query tile stays in shared memory; for each
-// 64-key tile the K tile is staged, each thread computes a 4 x 4 block of
-// scores (rows ty + 16i, keys tx + 16j) from float4 reads, the row max
-// and sum go through 16-lane shuffles, the probabilities go to shared
-// memory, the V tile replaces the K tile, and each thread accumulates 4
-// rows x D/16 output columns in registers.  Key tiles that the causal or
-// window mask removes entirely are skipped.  D is padded to a multiple of
-// 64 (DP) with zeros in shared memory: 64, 128, 192 or 256.
+// float32 (`flash_tf32_kernel`): FlashAttention-2's forward on the tensor
+// cores in split TF32, after csrc/flash_attention_bwd.cu.  Both products,
+// S = Q·Kᵀ and O += P·V, are `mma.sync.m16n8k8` TF32 with each float32
+// operand split into hi, its TF32 rounding (by integer arithmetic: cvt
+// runs at a quarter of the ALU's rate), and lo = x - hi: hi·hi + hi·lo +
+// lo·hi, about 2^-21 of each product against TF32's 2^-11, so the float32
+// contract holds.  The tensor cores truncate their running sums, so a
+// fragment sums one 64-column slab of D for S (two fragments in turn
+// where a tile has fewer than 64 keys) and one key tile for P·V, and is
+// then added into float32 sums by plain additions (P·V's folded into the
+// rescale: acc = alpha·acc + part, one fmaf).  One block of NW warps per
+// (batch·head, 16·NW-row query tile), heaviest causal tiles first; each
+// warp owns 16 query rows and walks the key tiles that some row of the
+// block can see (causal: up to the last row; window: from the first row's
+// window), skipping, warp by warp, a tile whose keys all lie past its
+// rows under causality.  K and V come in by `cp.async` 16-byte copies (D
+// is a multiple of 4, so every float32 row is 16-byte aligned) into a
+// two-stage ring that takes K_j, V_j, K_j+1, ... in turn: V_j lands while
+// the warps take S of tile j, K_j+1 while they take P·V, and a tile is
+// twice as long as a ring of (K, V) pairs would allow in the same bytes;
+// rows past S or T and columns past D are zero-filled by the copy itself.
+// Shared rows are padded by 4 floats (stride = 4 mod 32 banks), so every
+// fragment load of Q, K and V hits 32 distinct banks.  P stays in
+// registers: the k index of P·V is permuted (fragment slot t takes key 2t,
+// slot t + 4 key 2t + 1, in A and B alike), so S's accumulator fragment
+// (columns 2t, 2t + 1) is P's A fragment, split once a tile.  The scale,
+// softcap and mask act on the S fragments; the row max and sum reduce
+// over the 4 lanes of a fragment row (shuffles 1 and 2).  O is D/8 x 4
+// float32 a thread in registers (128 at D = 256); the output is written
+// from the fragments in float2 stores.  D is padded to a multiple of 64
+// (DP) in shared memory; 8-column blocks past D are skipped.  The tiling
+// (warps, keys, and whether Q is split once as it lands or at each
+// fragment load) comes from kernel.fwd_plan, a function of the shapes
+// alone; at DP 256, 8 warps and 32-key tiles: Q 133 KB and the ring 66.5
+// KB, 200 KB of the 227 a block may have.  K and V are split at each
+// fragment load: split as they land, their hi and lo would double the
+// shared-memory reads of the B fragments, the largest stream, to save ALU
+// work.  -Xptxas -v shows no spill at any DP (at most 245 registers).
 //
 // bfloat16 (`flash_bf16_kernel`): FlashAttention-2's forward on the
 // tensor cores.  One block of 8 warps per (batch·head, 128-row query
@@ -71,11 +99,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;   // query rows and keys of a tile
-constexpr int kBQ = kTile;
-constexpr int kBK = kTile;
-constexpr int kPStride = kBK + 4;
 constexpr float kNeg = -0.7f * 3.40282347e+38f;
 
 struct Params {
@@ -84,215 +107,6 @@ struct Params {
   int causal, window;   // window <= 0: none
   int use_softcap;
 };
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// A tile: rows x D of `src` (row stride D) into `dst` ([kTile][DP + 4]),
-// zero outside [0, rows) x [0, D).  D is a multiple of 4.
-template <int DP>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      int rows, int D) {
-  constexpr int kVec = DP / 4;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec, d = (i % kVec) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && d < D) val = load4(src + static_cast<size_t>(r) * D + d);
-    *reinterpret_cast<float4*>(dst + r * (DP + 4) + d) = val;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o,
-             float* __restrict__ lse, Params p) {
-  constexpr int kStride = DP + 4;
-  constexpr int kCols = DP / 64;           // float4 output columns a thread
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [kBQ][kStride]
-  float* kvs = qs + kBQ * kStride;         // [kBK][kStride]: K, then V
-  float* ps = kvs + kBK * kStride;         // [kBQ][kPStride]
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int kvh = b * p.KH + h / (p.H / p.KH);
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qi * kBQ;
-  const int q_rows = min(kBQ, p.S - q0);
-  const int first_q = q0, last_q = q0 + q_rows - 1;
-
-  const float* qb = q + (static_cast<size_t>(bh) * p.S + q0) * p.D;
-  const float* kb = k + static_cast<size_t>(kvh) * p.T * p.D;
-  const float* vb = v + static_cast<size_t>(kvh) * p.T * p.D;
-  stage<DP>(qs, qb, q_rows, p.D);
-
-  float acc[4][kCols][4];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = kNeg;
-    l_run[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
-  }
-
-  const int n_kv = (p.T + kBK - 1) / kBK;
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kBK;
-    // Tiles that the mask removes for every row of this query tile.
-    if (p.causal && k0 > last_q) break;
-    if (p.window > 0 && k0 + kBK - 1 <= first_q - p.window) continue;
-    const int k_rows = min(kBK, p.T - k0);
-    __syncthreads();                       // previous V tile consumed
-    stage<DP>(kvs, kb + static_cast<size_t>(k0) * p.D, k_rows, p.D);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = load4(qs + (ty + 16 * i) * kStride + d);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kv[c] = load4(kvs + (tx + 16 * c) * kStride + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float a = s[i][c];
-          a = fmaf(qv[i].x, kv[c].x, a);
-          a = fmaf(qv[i].y, kv[c].y, a);
-          a = fmaf(qv[i].z, kv[c].z, a);
-          a = fmaf(qv[i].w, kv[c].w, a);
-          s[i][c] = a;
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kp = k0 + tx + 16 * c;
-        float x = s[i][c] * p.scale;
-        if (p.use_softcap) x = p.softcap * tanhf(x / p.softcap);
-        bool live = true;
-        if (p.causal) live = live && kp <= qp;
-        if (p.window > 0) live = live && kp > qp - p.window;
-        // Keys past T (a ragged last tile) do not exist: -inf, p = 0.
-        x = kp >= p.T ? -INFINITY : (live ? x : kNeg);
-        s[i][c] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int o_ = 8; o_ > 0; o_ >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pr = expf(s[i][c] - m_new);
-        ps[(ty + 16 * i) * kPStride + tx + 16 * c] = pr;
-        sum += pr;
-      }
-#pragma unroll
-      for (int o_ = 8; o_ > 0; o_ >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o_);
-      l_run[i] = l_run[i] * alpha + sum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
-    }
-    __syncthreads();                       // scores done with the K tile
-    stage<DP>(kvs, vb + static_cast<size_t>(k0) * p.D, k_rows, p.D);
-    __syncthreads();
-
-    for (int t = 0; t < kBK; t += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = load4(ps + (ty + 16 * i) * kPStride + t);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const float4 vv =
-              load4(kvs + (t + u) * kStride + 4 * (tx + 16 * c));
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pr = u == 0 ? pv[i].x : u == 1 ? pv[i].y
-                           : u == 2 ? pv[i].z : pv[i].w;
-            acc[i][c][0] = fmaf(pr, vv.x, acc[i][c][0]);
-            acc[i][c][1] = fmaf(pr, vv.y, acc[i][c][1]);
-            acc[i][c][2] = fmaf(pr, vv.z, acc[i][c][2]);
-            acc[i][c][3] = fmaf(pr, vv.w, acc[i][c][3]);
-          }
-        }
-      }
-    }
-  }
-
-  float* ob = o + (static_cast<size_t>(bh) * p.S + q0) * p.D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= q_rows) continue;
-    const float denom = fmaxf(l_run[i], 1e-30f);
-    if (lse != nullptr && tx == 0)
-      lse[static_cast<size_t>(bh) * p.S + q0 + r] = m_run[i] + logf(denom);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * (tx + 16 * c) + e;
-        if (d < p.D)
-          ob[static_cast<size_t>(r) * p.D + d] = acc[i][c][e] / denom;
-      }
-  }
-}
-
-template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((kBQ + kBK) * (DP + 4)
-                                       + kBQ * kPStride);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.S + kBQ - 1) / kBQ, B * p.H);
-  if (grid.x > 0 && grid.y > 0) {
-    flash_kernel<DP><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), p);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int dispatch_dp(const void* q, const void* k, const void* v, void* o,
-                void* lse, int B, const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch<64>(q, k, v, o, lse, B, p, stream);
-  if (p.D <= 128) return launch<128>(q, k, v, o, lse, B, p, stream);
-  if (p.D <= 192) return launch<192>(q, k, v, o, lse, B, p, stream);
-  return launch<256>(q, k, v, o, lse, B, p, stream);
-}
-
 
 // ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores.
@@ -623,26 +437,460 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores, in split TF32.
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32 (to nearest, ties away from zero: the result of
+// cvt.rna.tf32.f32) by integer arithmetic on its bits: cvt runs at a
+// quarter of the ALU's rate on sm_90.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo: hi its TF32 rounding, lo = x - hi (exact in float32, |lo|
+// <= 2^-11 |x|), passed whole: the mma reads a TF32 operand by its upper
+// 19 bits, so lo enters truncated, within 2^-21 of x.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[j] += a·b[j] in split TF32 (lo·hi, hi·lo, then hi·hi) for one A
+// fragment (ah, al: its split) and J B fragments, b[j] the float32 pair
+// (b0[j], b1[j]), split here; every b split first, then the three terms
+// pass by pass, so that no two products in a row wait on one accumulator.
+// Only j < jn (uniform over the block) take part.
+template <int J>
+__device__ __forceinline__ void mma3_tf32(float (&d)[J][4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const float (&b0)[J],
+                                          const float (&b1)[J], int jn) {
+  uint32_t bh[J][2], bl[J][2];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    split_tf32(b0[j], bh[j][0], bl[j][0]);
+    split_tf32(b1[j], bh[j][1], bl[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < jn) mma_tf32(d[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < jn) mma_tf32(d[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (j < jn) mma_tf32(d[j], ah, bh[j][0], bh[j][1]);
+}
+
+// `rows` rows of D float32 values (row stride D) into a shared tile of
+// ROWS rows at DP + 4 values a row by 16-byte cp.async (D is a multiple of
+// 4, so every row starts 16-byte aligned), zero where r >= rows or the
+// column >= D.
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int rows, int D) {
+  constexpr int kVec = DP / 4;
+  for (int i = threadIdx.x; i < ROWS * kVec; i += THREADS) {
+    const int r = i / kVec, c = (i % kVec) * 4;
+    const bool ok = r < rows && c < D;
+    cp_async(smem_u32(dst + r * (DP + 4) + c),
+             ok ? src + static_cast<size_t>(r) * D + c : src, true, ok);
+  }
+}
+
+// S = Q·Kᵀ for the warp's 16 rows and the tile's KEYS keys into s (Q:
+// float32 `qs`, or split `qh`, `ql` where SQ; `kt` at the lane's B
+// element of key 0, column 0; `a_off`: the lane's A element of column
+// 0), 64 keys at a time at DP <= 128 and 32 above (where O's registers
+// leave no room for more).  A fragment sums one 64-column slab of D, then
+// is added into the float32 scores.
+template <int DP, int KEYS, bool SQ>
+__device__ __forceinline__ void tile_scores(const float* qs,
+                                            const uint32_t* qh,
+                                            const uint32_t* ql,
+                                            const float* kt, int a_off,
+                                            int n8, float (&s)[KEYS / 8][4]) {
+  constexpr int kStr = DP + 4;
+  constexpr int kNS = KEYS / 8;
+  constexpr int kGMax = DP <= 128 ? 8 : 4;
+  constexpr int kG = kNS > kGMax ? kGMax : kNS;   // 8-key blocks a pass
+  static_assert(kNS % kG == 0, "passes must cover the tile");
+#pragma unroll
+  for (int n0 = 0; n0 < kNS; n0 += kG) {
+#pragma unroll
+    for (int n = 0; n < kG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n0 + n][e] = 0.0f;
+    for (int c0 = 0; c0 < n8; c0 += 8) {
+      const int c1 = min(c0 + 8, n8);
+      float part[kG][4];
+#pragma unroll
+      for (int n = 0; n < kG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+#pragma unroll 2
+      for (int c = c0; c < c1; ++c) {
+        const int d = 8 * c;
+        uint32_t ah[4], al[4];
+        if constexpr (SQ) {
+          const uint32_t* xh = qh + a_off + d;
+          const uint32_t* xl = ql + a_off + d;
+          ah[0] = xh[0]; ah[1] = xh[8 * kStr];
+          ah[2] = xh[4]; ah[3] = xh[8 * kStr + 4];
+          al[0] = xl[0]; al[1] = xl[8 * kStr];
+          al[2] = xl[4]; al[3] = xl[8 * kStr + 4];
+        } else {
+          const float* x = qs + a_off + d;
+          split_tf32(x[0], ah[0], al[0]);
+          split_tf32(x[8 * kStr], ah[1], al[1]);
+          split_tf32(x[4], ah[2], al[2]);
+          split_tf32(x[8 * kStr + 4], ah[3], al[3]);
+        }
+        float b0[kG], b1[kG];
+#pragma unroll
+        for (int n = 0; n < kG; ++n) {
+          b0[n] = kt[8 * (n0 + n) * kStr + d];
+          b1[n] = kt[8 * (n0 + n) * kStr + d + 4];
+        }
+        mma3_tf32<kG>(part, ah, al, b0, b1, kG);
+      }
+#pragma unroll
+      for (int n = 0; n < kG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n0 + n][e] = s[n0 + n][e] + part[n][e];
+    }
+  }
+}
+
+// The online softmax on the score fragments, in place: scale, softcap,
+// mask (element e of block n is row qp[e / 2], key k0 + 8n + 2t + e % 2),
+// the row max and sum over the 4 lanes of a fragment row; s becomes P,
+// alpha the rescale of the rows' running sums.
+template <int KEYS>
+__device__ __forceinline__ void tile_softmax(const Params& p, int k0, int t,
+                                             const int (&qp)[2],
+                                             float (&s)[KEYS / 8][4],
+                                             float (&m_run)[2],
+                                             float (&l_run)[2],
+                                             float (&alpha)[2]) {
+  constexpr int kNS = KEYS / 8;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kNS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kp = k0 + 8 * n + 2 * t + (e % 2);
+      const int row = qp[e / 2];
+      float x = s[n][e] * p.scale;
+      if (p.use_softcap) x = p.softcap * tanhf(x / p.softcap);
+      bool live = true;
+      if (p.causal) live = live && kp <= row;
+      if (p.window > 0) live = live && kp > row - p.window;
+      // Keys past T (a ragged last tile) do not exist: -inf, p = 0.
+      x = kp >= p.T ? -INFINITY : (live ? x : kNeg);
+      s[n][e] = x;
+      mx[e / 2] = fmaxf(mx[e / 2], x);
+    }
+  float sum[2] = {0.0f, 0.0f}, m_new[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    m_new[r] = fmaxf(m_run[r], mx[r]);
+    alpha[r] = expf(m_run[r] - m_new[r]);
+    m_run[r] = m_new[r];
+  }
+#pragma unroll
+  for (int n = 0; n < kNS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = expf(s[n][e] - m_new[e / 2]);
+      sum[e / 2] += s[n][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l_run[r] = l_run[r] * alpha[r] + sum[r];
+  }
+}
+
+// O = alpha·O + P·V for the warp's 16 rows (`vt` at the lane's B element:
+// key 2t, column g).  P's A fragment of key block n is S's accumulator
+// fragment n with the k index permuted (slot t takes key 2t, slot t + 4
+// key 2t + 1, in A and B alike): a0..a3 = s0, s2, s1, s3, split once.  KC
+// blocks of O at a time (fewer where O's registers leave no room); a
+// fragment sums the tile's keys and is then added into the float32 sums:
+// acc = alpha·acc + part, one fmaf.
+template <int DP, int KEYS, int KC>
+__device__ __forceinline__ void tile_pv(const float* vt, int n8,
+                                        const float (&s)[KEYS / 8][4],
+                                        const float (&alpha)[2],
+                                        float (&acc)[DP / 8][4]) {
+  constexpr int kStr = DP + 4;
+  constexpr int kNS = KEYS / 8;
+  constexpr int kNB = DP / 8;
+  constexpr int kC = KC;
+  static_assert(kNB % kC == 0, "P·V passes must cover DP");
+  uint32_t ph[kNS][4], pl[kNS][4];
+#pragma unroll
+  for (int n = 0; n < kNS; ++n) {
+    split_tf32(s[n][0], ph[n][0], pl[n][0]);
+    split_tf32(s[n][2], ph[n][1], pl[n][1]);
+    split_tf32(s[n][1], ph[n][2], pl[n][2]);
+    split_tf32(s[n][3], ph[n][3], pl[n][3]);
+  }
+#pragma unroll
+  for (int c0 = 0; c0 < kNB; c0 += kC) {
+    if (c0 < n8) {                       // uniform over the block
+      float part[kC][4];
+#pragma unroll
+      for (int jj = 0; jj < kC; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[jj][e] = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kNS; ++n) {
+        float b0[kC], b1[kC];
+#pragma unroll
+        for (int jj = 0; jj < kC; ++jj) {
+          b0[jj] = vt[8 * n * kStr + 8 * (c0 + jj)];
+          b1[jj] = vt[(8 * n + 1) * kStr + 8 * (c0 + jj)];
+        }
+        mma3_tf32<kC>(part, ph[n], pl[n], b0, b1, n8 - c0);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kC; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[c0 + jj][e] = fmaf(acc[c0 + jj][e], alpha[e / 2],
+                                 part[jj][e]);
+    }
+  }
+}
+
+// Shared memory of an instantiation: Q (twice where SQ) and the K/V ring
+// of two stages, one K and one V tile, rows of DP + 4 floats.
+template <int DP, int NW, int KEYS, bool SQ>
+constexpr size_t f32_smem() {
+  return sizeof(float) * (DP + 4) * ((SQ ? 2 : 1) * 16 * NW + 2 * KEYS);
+}
+
+// Two blocks an SM where two fit (4 warps, at most half the shared
+// memory): 8 warps an SM either way.
+template <int DP, int NW, int KEYS, bool SQ>
+constexpr int f32_min_blocks() {
+  return NW <= 4 && f32_smem<DP, NW, KEYS, SQ>() <= 232448 / 2 - 1024 ? 2
+                                                                       : 1;
+}
+
+// One block of NW warps per (batch·head, 16·NW-row query tile); KEYS keys
+// a K/V tile; SQ: Q split into hi and lo once, as it lands, else at each
+// fragment load.  The ring's two stages take K_j, V_j, K_j+1, ... in
+// turn: V_j is copied while every warp takes S of tile j, K_j+1 while it
+// takes P·V, so each copy has half a tile's products to land in, and a
+// tile is twice as long as two stages of (K, V) pairs would allow.
+template <int DP, int NW, int KEYS, bool SQ>
+__global__ void __launch_bounds__(32 * NW, (f32_min_blocks<DP, NW, KEYS,
+                                                           SQ>()))
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, Params p) {
+  constexpr int kThreadsF = 32 * NW;
+  constexpr int kRows = 16 * NW;         // query rows of a block
+  constexpr int kStr = DP + 4;           // floats a shared row
+  constexpr int kNS = KEYS / 8;          // 8-key blocks of S
+  constexpr int kNB = DP / 8;            // 8-column blocks of O
+  // O blocks a P·V pass: 8 warps at DP >= 192 leave registers for 2.
+  constexpr int kC = DP < 192 ? 8 : NW >= 8 ? 2 : 4;
+  constexpr int kTileF = KEYS * kStr;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);    // [kRows][kStr]
+  uint32_t* qh = reinterpret_cast<uint32_t*>(qs);    // SQ: hi, then lo
+  uint32_t* ql = qh + kRows * kStr;
+  float* ks = qs + (SQ ? 2 : 1) * kRows * kStr;      // [KEYS][kStr]
+  float* vs = ks + kTileF;                           // [KEYS][kStr]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kvh = b * p.KH + h / (p.H / p.KH);
+  const int qi = gridDim.x - 1 - blockIdx.x;   // heaviest causal first
+  const int q0 = qi * kRows;
+  const int q_rows = min(kRows, p.S - q0);
+  const int first_q = q0, last_q = q0 + q_rows - 1;
+  // This thread's two rows of every fragment: r_lo and r_lo + 8.
+  const int r_lo = warp * 16 + g;
+  const int qp[2] = {q0 + r_lo, q0 + r_lo + 8};
+  const int warp_last = q0 + warp * 16 + 15;
+  const int n8 = (p.D + 7) / 8;          // 8-column blocks holding D
+
+  const float* qb = q + (static_cast<size_t>(bh) * p.S + q0) * p.D;
+  const float* kb = k + static_cast<size_t>(kvh) * p.T * p.D;
+  const float* vb = v + static_cast<size_t>(kvh) * p.T * p.D;
+
+  // The key tiles that some row of this query tile can see.
+  const int n_kv = (p.T + KEYS - 1) / KEYS;
+  const int j_end = p.causal ? min(n_kv, last_q / KEYS + 1) : n_kv;
+  int j_begin = 0;
+  if (p.window > 0) {
+    const int x = first_q - p.window - (KEYS - 1);
+    if (x >= 0) j_begin = x / KEYS + 1;
+  }
+  auto load = [&](float* dst, const float* src, int j) {
+    const int k0 = j * KEYS;
+    load_rows_f32<KEYS, DP, kThreadsF>(
+        dst, src + static_cast<size_t>(k0) * p.D, min(KEYS, p.T - k0), p.D);
+  };
+  load_rows_f32<kRows, DP, kThreadsF>(qs, qb, q_rows, p.D);
+  cp_async_commit();                     // Q
+  if (j_begin < j_end) load(ks, kb, j_begin);
+  cp_async_commit();                     // the first K tile
+  if constexpr (SQ) {
+    cp_async_wait<1>();                  // Q has landed
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRows * kStr; i += kThreadsF) {
+      uint32_t hi, lo;
+      split_tf32(qs[i], hi, lo);
+      qh[i] = hi;
+      ql[i] = lo;
+    }
+    __syncthreads();
+  }
+
+  float acc[kNB][4];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m_run[2] = {kNeg, kNeg}, l_run[2] = {0.0f, 0.0f};
+
+  // Fragment bases: A of S (Q rows r_lo, r_lo + 8, column t); B of S (key
+  // g of each 8-key block, column t); B of P·V (keys 2t and 2t + 1,
+  // column g).
+  const int a_off = r_lo * kStr + t;
+  const int k_off = g * kStr + t;
+  const int v_off = 2 * t * kStr + g;
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const int k0 = j * KEYS;
+    // Causal: a warp whose rows all lie before the tile's first key takes
+    // nothing from it (its rows have met a live key: alpha 1, p 0).
+    const bool mine = !(p.causal && k0 > warp_last);
+    cp_async_wait<0>();                  // K_j (and Q) have landed
+    __syncthreads();                     // every warp is done with V_j-1
+    load(vs, vb, j);                     // V_j, during S of tile j
+    cp_async_commit();
+    float s[kNS][4], alpha[2];
+    if (mine) {
+      tile_scores<DP, KEYS, SQ>(qs, qh, ql, ks + k_off, a_off, n8, s);
+      tile_softmax<KEYS>(p, k0, t, qp, s, m_run, l_run, alpha);
+    }
+    cp_async_wait<0>();                  // V_j has landed
+    __syncthreads();                     // every warp is done with K_j
+    if (j + 1 < j_end) load(ks, kb, j + 1);   // K_j+1, during P·V
+    cp_async_commit();
+    if (mine) tile_pv<DP, KEYS, kC>(vs + v_off, n8, s, alpha, acc);
+  }
+  cp_async_wait<0>();                    // Q, if no tile was walked
+
+  // o = acc / max(l, 1e-30), straight from the fragments (float2 stores:
+  // D is a multiple of 4).
+  float* ob = o + (static_cast<size_t>(bh) * p.S + q0) * p.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    if (row >= q_rows) continue;
+    const float denom = fmaxf(l_run[r], 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[static_cast<size_t>(bh) * p.S + q0 + row] =
+          m_run[r] + logf(denom);
+#pragma unroll
+    for (int n = 0; n < kNB; ++n) {
+      const int d = 8 * n + 2 * t;
+      if (d < p.D)
+        *reinterpret_cast<float2*>(ob + static_cast<size_t>(row) * p.D + d) =
+            make_float2(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+    }
+  }
+}
+
+template <int DP, int NW, int KEYS, bool SQ>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = f32_smem<DP, NW, KEYS, SQ>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_tf32_kernel<DP, NW, KEYS, SQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.S + 16 * NW - 1) / (16 * NW), B * p.H);
+  if (grid.x > 0 && grid.y > 0) {
+    flash_tf32_kernel<DP, NW, KEYS, SQ><<<grid, 32 * NW, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation that kernel.fwd_plan names (kernel.FWD_TILES): (warps,
+// keys, split_q) at D padded to a multiple of 64; any other is refused.
+int dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, const Params& p, int warps, int keys,
+                 int split_q, cudaStream_t stream) {
+  const int dp = (p.D + 63) / 64 * 64;
+  auto is = [&](int dp_, int nw, int ky, int sq) {
+    return dp == dp_ && warps == nw && keys == ky && split_q == sq;
+  };
+#define FLASH_F32(DP_, NW_, KEYS_, SQ_)                                     \
+  if (is(DP_, NW_, KEYS_, SQ_))                                             \
+    return launch_f32<DP_, NW_, KEYS_, SQ_>(q, k, v, o, lse, B, p, stream);
+  FLASH_F32(64, 8, 64, true)
+  FLASH_F32(128, 8, 64, true)
+  FLASH_F32(192, 4, 32, false)
+  FLASH_F32(256, 8, 32, false)
+#undef FLASH_F32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue for a shape the kernel does not take
 // (D > 256 or not a multiple of 4, H not a multiple of KH; a non-null
-// lse with bfloat16).  bf16 != 0: the tensors are bfloat16, else float32.
+// lse with bfloat16; a float32 plan (warps, keys, split_q) that is not
+// instantiated).  bf16 != 0: the tensors are bfloat16, else float32.
 // window <= 0 means no window; use_softcap == 0 means no softcap.  lse
-// null: no log-sum-exp output.
+// null: no log-sum-exp output.  warps, keys and split_q come from
+// kernel.fwd_plan (float32 only; bfloat16 ignores them).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int bf16,
                                       int B, int H, int KH, int S, int T,
                                       int D, float scale, int causal,
                                       int window, int use_softcap,
-                                      float softcap, void* stream) {
+                                      float softcap, int warps, int keys,
+                                      int split_q, void* stream) {
   if (D <= 0 || D > 256 || D % 4 != 0 || KH <= 0 || H % KH != 0
       || (bf16 && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{H, KH, S, T, D, scale, softcap, causal, window, use_softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch_bf16(q, k, v, o, B, p, st)
-              : dispatch_dp(q, k, v, o, lse, B, p, st);
+              : dispatch_f32(q, k, v, o, lse, B, p, warps, keys, split_q,
+                             st);
 }

@@ -5,11 +5,13 @@
 :func:`prepare` checks the inputs and allocates the output, :func:`launch`
 launches once on prepared arguments, and :func:`flash_attention_cuda` does
 both and counts the launch in ``flash_attention_cuda.launches`` (and
-nowhere else).  The C entry routes by dtype: bfloat16 to the tensor-core
-kernel (``mma.sync`` with ``cp.async`` loads), float32 to the CUDA-core
-kernel, which keeps the float32 contract that TF32 would break; the
-float32 kernel also writes each row's log-sum-exp when asked
-(``want_lse``), which the backward reads.  :func:`prepare_bwd`,
+nowhere else).  The C entry routes by dtype, both to tensor-core kernels
+(``mma.sync`` with a ``cp.async`` K/V ring): bfloat16 to the bf16
+kernel, float32 to the split-TF32 kernel (each operand split into a TF32
+head and remainder, three products, which keeps the float32 contract)
+with the tiling that :func:`fwd_plan` gives; the float32 kernel also
+writes each row's log-sum-exp when asked (``want_lse``), which the
+backward reads.  :func:`prepare_bwd`,
 :func:`launch_bwd` and :func:`flash_attention_bwd_cuda` are the same for
 the backward (float32 only), counted in
 ``flash_attention_bwd_cuda.launches``: one a call, whose kernels are the
@@ -29,7 +31,7 @@ from repro_torch.kernels import capi
 
 __all__ = ["flash_attention_bwd_cuda", "flash_attention_cuda", "launch",
            "launch_bwd", "prepare", "prepare_bwd", "BWD_PHASES", "BwdPlan",
-           "bwd_plan"]
+           "bwd_plan", "FwdPlan", "FWD_TILES", "fwd_plan"]
 
 _OP = "flash_attention"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -46,7 +48,8 @@ BWD_ALL = sum(BWD_PHASES.values())
 def _fn():
     return capi.entry(_OP, "flash_attention_launch",
                       [capi.P] * 5 + [capi.I] * 7
-                      + [capi.F, capi.I, capi.I, capi.I, capi.F, capi.P])
+                      + [capi.F, capi.I, capi.I, capi.I, capi.F]
+                      + [capi.I] * 3 + [capi.P])
 
 
 def _bwd_fn():
@@ -54,6 +57,61 @@ def _bwd_fn():
                       [capi.P] * 11 + [capi.I] * 7
                       + [capi.F, capi.I, capi.I, capi.I, capi.F, capi.I,
                          capi.P])
+
+
+# The float32 forward's instantiations in csrc/flash_attention.cu, one a
+# DP: (DP, warps, keys, split_q).
+FWD_TILES = ((64, 8, 64, True), (128, 8, 64, True), (192, 4, 32, False),
+             (256, 8, 32, False))
+_FWD_STAGES = 2
+_SMEM_LIMIT = 232448        # bytes of shared memory a block may have
+
+
+class FwdPlan(NamedTuple):
+    """The float32 forward's launch plan (:func:`fwd_plan`)."""
+    dp: int                 # D padded to a multiple of 64 in shared memory
+    warps: int              # 16 query rows each
+    rows: int               # query rows of a block
+    keys: int               # keys of a K/V tile
+    stages: int             # the ring's stages: K_j, V_j, K_j+1, ... in turn
+    split_q: bool           # Q split into hi and lo once, as it lands
+    split_kv: bool          # K and V split as they land (never: see below)
+    smem_bytes: int
+    blocks_per_sm: int      # as the kernel's launch bounds ask
+    grid: tuple             # (query tiles, B x H)
+
+
+def fwd_plan(b, h, kh, s, t, d, causal=True, window=None) -> FwdPlan:
+    """The float32 forward's plan, a pure function of the shapes: it reads
+    no device, so a call's tiling, order of sums and bits are the same on
+    every card.
+
+    DP is D padded to a multiple of 64; each DP has one tiling
+    (:data:`FWD_TILES`): Q [rows][DP + 4] float32 in shared memory and a
+    two-stage ring that takes K_j, V_j, K_j+1, ... [keys][DP + 4] in turn
+    (V_j lands during S of tile j, K_j+1 during P·V).  Q is split into hi
+    and lo once where ``split_q`` (twice Q's bytes: at DP <= 128), else at
+    each fragment load.  K and V are split at each fragment load: split as
+    they land, their hi and lo would double the shared-memory reads of the
+    B fragments, the largest stream, and need a third buffer.  8 warps a
+    block, one block an SM, 128-row tiles; at DP 192, 4 warps and two
+    blocks an SM (64-row tiles, twice the blocks: as fast at the MLA's
+    shape, faster on small grids; 64-key tiles at 8 warps spill there).
+    ``kh``, ``t``, ``causal`` and ``window`` do not change the plan."""
+    dp = (d + 63) // 64 * 64
+    mine = [x for x in FWD_TILES if x[0] == dp]
+    if not mine:
+        raise ValueError(f"{_OP}: head dim {d} must lie in (0, "
+                         f"{MAX_HEAD_DIM}]")
+    _, warps, keys, split_q = mine[0]
+    rows = 16 * warps
+    smem = 4 * (dp + 4) * ((2 if split_q else 1) * rows + 2 * keys)
+    assert smem <= _SMEM_LIMIT, (dp, warps, keys, split_q, smem)
+    blocks = 2 if warps <= 4 and smem <= _SMEM_LIMIT // 2 - 1024 else 1
+    return FwdPlan(dp=dp, warps=warps, rows=rows, keys=keys,
+                   stages=_FWD_STAGES, split_q=split_q, split_kv=False,
+                   smem_bytes=smem, blocks_per_sm=blocks,
+                   grid=((s + rows - 1) // rows, b * h))
 
 
 class BwdPlan(NamedTuple):
@@ -107,7 +165,8 @@ def prepare(q, k, v, *, scale=None, causal=True, window=None,
             softcap=None, want_lse=False):
     """Returns ``(args, out, keep)``: the C entry's arguments, the output
     tensor (``(o, lse)`` with ``want_lse``: lse [B, H, S] float32, float32
-    inputs only) and the inputs ``args`` points into."""
+    inputs only) and the inputs ``args`` points into.  A float32 call
+    takes :func:`fwd_plan`'s tiling."""
     dev = capi.require_cuda(_OP, q)
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
@@ -119,14 +178,18 @@ def prepare(q, k, v, *, scale=None, causal=True, window=None,
     if want_lse and q.dtype != torch.float32:
         raise TypeError(f"{_OP}: the lse output is float32 only")
     scale = d ** -0.5 if scale is None else scale
+    bf16 = q.dtype == torch.bfloat16
+    plan = None if bf16 else fwd_plan(b, h, kh, s, t, d, causal, window)
     o = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
            if want_lse else None)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            capi.ptr(lse), int(q.dtype == torch.bfloat16), b, h, kh, s, t, d,
+            capi.ptr(lse), int(bf16), b, h, kh, s, t, d,
             float(np.float32(scale)), int(bool(causal)),
             0 if window is None else int(window), int(softcap is not None),
             float(np.float32(0.0 if softcap is None else softcap)),
+            *((0, 0, 0) if bf16 else
+              (plan.warps, plan.keys, int(plan.split_q))),
             capi.stream(dev))
     return args, (o if lse is None else (o, lse)), (q, k, v)
 
