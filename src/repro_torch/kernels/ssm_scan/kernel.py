@@ -209,28 +209,70 @@ ssm_scan_cuda.launches = 0
 
 
 _BWD = "ssm_scan_bwd"
-# The backward's kernels, as bits of launch_bwd's ``phases``.
-BWD_PHASES = {"cum": 1, "dstate": 2, "state_pass": 4, "dq": 8, "dkdv": 16,
-              "dlog": 32}
+# The backward's kernels, as bits of launch_bwd's ``phases``, in launch
+# order: the carries start dk/dv's sums and the diagonal pairs' dq
+# partials, which the dk/dv kernel writes and dq_sum adds.
+BWD_PHASES = {"cum": 1, "dstate": 2, "state_pass": 4, "carry": 8,
+              "dkdv": 16, "dq_sum": 32, "dlog": 64}
 BWD_ALL = sum(BWD_PHASES.values())
-BWD_TILE = 64            # rows and columns of a backward output tile
+BWD_TILE = 64            # rows and columns of a backward tile
+BWD_THREADS = 256        # eight warps, a 32 x 16 eighth of a tile each
+_BWD_STAGED = BWD_TILE * (BWD_TILE + 4) * 8   # a (hi, lo) float2 tile
 _BWD_STRIDES = ctypes.c_longlong * 22
+_BWD_PLAN = ctypes.c_longlong * 10
 
 
 class BwdPlan(NamedTuple):
     """The backward's geometry, a pure function of the shapes: the tiles
     that split a sum over blocks, and so its order, are the same on every
-    card."""
+    card.  The C entry (``csrc/ssm_scan_bwd.cu``) computes the same values
+    from the shapes and refuses a launch whose plan differs.
+
+    Every product of phases 1, 2b and 3 is a ``tile`` x ``tile`` output
+    of a block of ``threads`` (eight warps), its operands split once as
+    they are staged, hi and lo planes of ``tile + 4`` floats a row.  The
+    d-state and carry blocks hold two staged tiles and two raw tiles, the
+    next step's copies in flight while the step before computes
+    (``stages`` 2); the dk/dv blocks two staged tiles and the score tile,
+    their copies landing in place (``stages`` 1), two blocks an SM
+    (``blocks_per_sm``); each beside the chunk's cumsum (float64) and
+    gate and four warps' row sums.  The dq-sum blocks stage nothing
+    (``stages`` 0): they add the partials and keep two warps' column
+    sums.  Sums split over blocks, in a fixed order: dq_i's partial of
+    each (query tile, key tile) pair, ``pairs`` a chunk, in the workspace
+    (``workspace_bytes``), added in ascending key tile, the diagonal
+    pair's last and holding dq's carry (phase 2b's); q·dq and k·dk̃ one
+    slot a 64-column tile of N (``n_tiles``), added in tile order by
+    phase 4."""
     chunk: int
     chunks: int
     n_tiles: int             # 64-column tiles of N: the partial dot products
+    tile: int = BWD_TILE
+    threads: int = BWD_THREADS
+    stages: tuple = (2, 1, 0)  # d-state, dk/dv, dq sum
+    q_tiles: int = 1         # 64-row query (and key) tiles a chunk
+    p_tiles: int = 1         # 64-column tiles of P
+    pairs: int = 1           # (query tile, key tile) pairs, j <= i
+    smem_dstate: int = 0     # shared bytes of phase 1's (and 2b's) block
+    smem_dkdv: int = 0       # of phase 3's (dk̃ and dq partials, or dṽ)
+    smem_dq_sum: int = 0     # of phase 3b's
+    workspace_bytes: int = 0  # the dq partials, float32
+    blocks_per_sm: int = 2   # dk/dv blocks an SM holds at once
+    grids: tuple = ()        # d-state, carry, dk/dv and dq-sum grids
+
+    def c_plan(self):
+        """The values the C entry checks, in its order."""
+        return _BWD_PLAN(self.tile, self.threads, self.q_tiles,
+                         self.n_tiles, self.p_tiles, self.pairs,
+                         self.smem_dstate, self.smem_dkdv, self.smem_dq_sum,
+                         self.workspace_bytes // 4)
 
 
 def plan_bwd(b: int, l: int, h: int, n: int, p: int, chunk: int) -> BwdPlan:
     """The backward's plan for k [b, l, h, n], v [b, l, h, p]; raises
     ``ValueError`` for more than 65535 chunks or a chunk whose cumsum and
-    gate, beside the tiles, overflow a block's shared memory."""
-    del b, h, p
+    gate, beside the staged tiles, overflow a block's shared memory.  It
+    reads the shapes only, never the card."""
     chunk = min(int(chunk), l)
     chunks = -(-l // chunk)
     if chunks > MAX_CHUNKS:
@@ -239,20 +281,31 @@ def plan_bwd(b: int, l: int, h: int, n: int, p: int, chunk: int) -> BwdPlan:
                          f"{MAX_CHUNKS})")
     t = BWD_TILE
     pad = _round_up(chunk, t)
-    # The dk/dv kernel's: the chunk's cumsum (float64) and gate, two rings
-    # of two 32-deep slabs and a score tile for each 64-row tile of the
-    # chunk, rows padded to 68 floats (csrc/ssm_scan_bwd.cu's tile_smem;
-    # the other kernels hold no more).
-    smem = 12 * pad + 4 * 32 * (t + 4) * 4 + (pad // t) * t * (t + 4) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{_BWD}: chunk {chunk} needs {smem} bytes of "
+    q_tiles = pad // t
+    n_tiles, p_tiles = -(-n // t), -(-p // t)
+    pairs = q_tiles * (q_tiles + 1) // 2
+    # csrc/ssm_scan_bwd.cu's tile_smem: cum (float64) and gate, 12 bytes a
+    # row; four warps' row sums; two staged tiles; two raw tiles in flight
+    # (phases 1 and 3b) or the score tile (phase 3).
+    base = 12 * pad + 4 * t * 4 + 2 * _BWD_STAGED
+    smem2 = smem3 = base + _BWD_STAGED
+    smem_sum = 2 * t * 4      # phase 3b: two warps' column sums
+    if smem3 > SMEM_LIMIT:
+        raise ValueError(f"{_BWD}: chunk {chunk} needs {smem3} bytes of "
                          f"shared memory a block (limit {SMEM_LIMIT})")
-    return BwdPlan(chunk, chunks, -(-n // t))
+    ws = 4 * b * h * chunks * pairs * n_tiles * t * t
+    # An SM's 228 KB, 1 KB of it reserved a block.
+    per_sm = min(2, (SMEM_LIMIT + 1024) // (smem3 + 1024))
+    grids = ((b * h, chunks, n_tiles * p_tiles),
+             (b * h, chunks, 3 * max(n_tiles, p_tiles)),
+             (b * h, chunks, 2 * q_tiles), (b * h, chunks, q_tiles * n_tiles))
+    return BwdPlan(chunk, chunks, n_tiles, t, BWD_THREADS, (2, 1, 0), q_tiles,
+                   p_tiles, pairs, smem2, smem3, smem_sum, ws, per_sm, grids)
 
 
 def _bwd_fn():
     return capi.entry(_BWD, "ssm_scan_bwd_launch",
-                      [capi.P] * 20 + [ctypes.POINTER(ctypes.c_longlong)]
+                      [capi.P] * 21 + [ctypes.POINTER(ctypes.c_longlong)] * 2
                       + [capi.I] * 8 + [capi.P])
 
 
@@ -260,8 +313,9 @@ def prepare_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
                 initial_state=None, states, final_state):
     """The backward's ``(args, (dk, dv, dq, d_log_decay, d_gate,
     d_initial_state), keep)``: the C entry's arguments, the gradients
-    (float32, contiguous, allocated here with the workspace of
-    :func:`plan_bwd`) and the tensors ``args`` points into.  ``states``
+    (float32, contiguous, allocated here with the scratch and the dq
+    partials' workspace of :func:`plan_bwd`, whose values go to the C
+    entry beside the shapes) and the tensors ``args`` points into.  ``states``
     and ``final_state`` are the forward's (:func:`ssm_scan_cuda` with
     ``want_states``); ``initial_state`` only says whether there was one."""
     dev = capi.require_cuda(_BWD, k)
@@ -293,6 +347,7 @@ def prepare_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
                       dtype=torch.int64, device=dev)
     etot = torch.empty((b, h, pl.chunks), dtype=f32, device=dev)
     parts = torch.empty((2, pl.n_tiles, b, h, l), dtype=f32, device=dev)
+    dqp = torch.empty(pl.workspace_bytes // 4, dtype=f32, device=dev)
     strides = _BWD_STRIDES(*k.stride(), *q.stride(), *v.stride(),
                            *dy.stride(), *log_decay.stride(),
                            *gate.stride())
@@ -302,10 +357,11 @@ def prepare_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
             dq.data_ptr(), dv.data_ptr(), dld.data_ptr(), dg.data_ptr(),
             d_init.data_ptr(), gs.data_ptr(), cum.data_ptr(),
             etot.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-            strides, int(initial_state is not None), b, l, h, n, p,
-            pl.chunk, capi.stream(dev))
+            dqp.data_ptr(), strides, pl.c_plan(),
+            int(initial_state is not None), b, l, h, n, p, pl.chunk,
+            capi.stream(dev))
     keep = (k, v, q, log_decay, gate, dy, d_final, states, final_state, gs,
-            cum, etot, parts)
+            cum, etot, parts, dqp)
     return args, (dk, dv, dq, dld, dg, d_init), keep
 
 

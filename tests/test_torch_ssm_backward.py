@@ -221,22 +221,28 @@ def test_bfloat16_with_grad_raises():
 def test_backward_plan_from_the_shapes():
     """``kernel.plan_bwd``: the chunk (at most L), the chunk count and the
     64-column tiles of N that split q·dq and k·dk̃ over blocks, at the
-    training shapes; the limits raise, and a CPU tensor never reaches
+    training shapes, then the tiles and the dq partials' (query tile,
+    key tile) pairs; the limits raise, and a CPU tensor never reaches
     the launcher."""
     from repro_torch.kernels.ssm_scan import kernel
-    assert kernel.plan_bwd(1, 2048, 112, 64, 64, 256) == (256, 8, 1)
-    assert kernel.plan_bwd(4, 2048, 4, 384, 385, 256) == (256, 8, 6)
-    assert kernel.plan_bwd(2, 1100, 3, 48, 65, 256) == (256, 5, 1)
-    assert kernel.plan_bwd(1, 40, 2, 65, 8, 256) == (40, 1, 2)
+    assert kernel.plan_bwd(1, 2048, 112, 64, 64, 256)[:3] == (256, 8, 1)
+    assert kernel.plan_bwd(4, 2048, 4, 384, 385, 256)[:3] == (256, 8, 6)
+    assert kernel.plan_bwd(2, 1100, 3, 48, 65, 256)[:3] == (256, 5, 1)
+    assert kernel.plan_bwd(1, 40, 2, 65, 8, 256)[:3] == (40, 1, 2)
+    pl = kernel.plan_bwd(4, 2048, 4, 384, 385, 256)
+    assert (pl.q_tiles, pl.p_tiles, pl.pairs) == (4, 7, 10)
+    assert pl.workspace_bytes == 4 * 4 * 4 * 8 * 10 * 6 * 64 * 64
     with pytest.raises(ValueError, match="grid dimension"):
         kernel.plan_bwd(1, 65536, 1, 8, 8, 1)
     with pytest.raises(ValueError, match="shared memory"):
         kernel.plan_bwd(1, 20000, 1, 8, 8, 20000)
-    # The dk/dv kernel keeps a score tile for each of the chunk's 64-row
-    # tiles: 8 fit beside the rest (chunk 512), 16 do not.
-    assert kernel.plan_bwd(1, 1024, 1, 384, 385, 512) == (512, 2, 6)
+    # The dk/dv kernel holds one score tile whatever the chunk, beside
+    # the chunk's cumsum and gate (12 bytes a row): chunks of 512 and 1024
+    # fit, 10688 rows do not.
+    assert kernel.plan_bwd(1, 1024, 1, 384, 385, 512)[:3] == (512, 2, 6)
+    assert kernel.plan_bwd(1, 1024, 1, 64, 64, 1024)[:3] == (1024, 1, 1)
     with pytest.raises(ValueError, match="shared memory"):
-        kernel.plan_bwd(1, 1024, 1, 64, 64, 1024)
+        kernel.plan_bwd(1, 10688, 1, 64, 64, 10688)
     x = _inputs("mlstm")
     args, s0 = _plain(x, "mlstm", torch.float32)
     _, s, states = linear_scan_fwd_ref(*args, chunk=x["chunk"])
