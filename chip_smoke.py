@@ -60,10 +60,11 @@ Without it, phases one line each with its times, then two JSON lines:
    ``ms``, with the host-launched ``launch_ms`` beside it; tree_predict
    with its launch plan: grid, threads, tile, shared bytes, registers)
    beside its plain version, its bound and, where one PyTorch call
-   computes the same function, that call (``library_ms``: SDPA, or a
-   compiled ``flex_attention`` with static shapes for the softcapped and
-   windowed prefills and the softcapped decodes, with its max abs error
-   against the plain version, and ``vs_library``,
+   computes the same function, that call (``library_ms``: SDPA; for the
+   softcapped and windowed prefills and the softcapped decodes a
+   compiled ``flex_attention`` with static shapes, with its max abs
+   error against the plain version, only under ``--only flex``, here and
+   in the zoo and phase train; and ``vs_library``,
    the kernel's time over the library call's);
 5. main path: ``run_many`` on tf-cnn at the paper's defaults, timeout off
    and on, through the kernel (launch counts read around the run), then
@@ -167,10 +168,10 @@ Without it, phases one line each with its times, then two JSON lines:
    with its plan (``kernel.bwd_plan``: the query group's split and the
    workspace bytes), timed from a CUDA graph with each of its kernels'
    times (Δ, dK/dV, the split's sum, dQ), beside the float32 plain
-   backward, the library's backward (SDPA's, or a compiled
-   ``flex_attention``'s for the window and softcap) and the bound (five
-   products in float32 on the CUDA cores; beside it, split TF32, three
-   products each, on the tensor cores); (b)
+   backward, the library's backward (SDPA's, or with ``--only flex`` a
+   compiled ``flex_attention``'s for the window and softcap) and the
+   bound (five products in float32 on the CUDA cores; beside it, split
+   TF32, three products each, on the tensor cores); (b)
    gemma-2b at full width and depth (18 layers, 2.51 B float32
    parameters drawn on the card) trained through
    ``train.step.make_train_step`` (B 2, S 2048, 2 microbatches, AdamW,
@@ -183,7 +184,10 @@ Without it, phases one line each with its times, then two JSON lines:
    state equals an unbroken run's bitwise; (d) gemma-2b-smoke's 3 steps
    against the JAX package's trajectory (``golden_train.json``); (e)
    ``ssm_scan`` and ``decode_attention`` refusing CUDA tensors that
-   require grad;
+   require grad; (f)-(i) the hybrid and ssm families
+   (:func:`phase_train_ssm`); (j) gemma-2b's steps through the sharded
+   step on a (1, 1) mesh of an NCCL world of one, bitwise (b)'s, and
+   ``compressed_psum`` over NCCL (:func:`_train_mesh`);
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result
@@ -1249,7 +1253,13 @@ def _live_mask(t, pos, window):
     return ok
 
 
-# The library yardstick's flex_attention, compiled once with static shapes.
+# The library yardstick's flex_attention, compiled once with static shapes,
+# only in a run that asks for it (``--only flex``, with the phases it
+# names): its compiles took ~10-16 s each, in phase ops (four), the zoo
+# (gemma2-9b's and mixtral-8x22b's windows and softcaps) and phase train's
+# backward cases, and its times are recorded (PERF.md, rows 4 and B9).
+# Elsewhere a softcapped or windowed case has no library time; SDPA's
+# stay.
 # With dynamo's default automatic dynamic shapes, a call at a new size
 # (gemma2-9b serving's B 2, S 4608 after phase ops' B 1, S 8192) compiled a
 # graph over symbolic sizes that ran 5x slower on an H100 (466.9 against
@@ -1262,10 +1272,13 @@ _FLEX = {}
 
 def _flex_call(q, k, v, softcap, mask_mod, scale):
     """A call of the compiled flex_attention: the softcap as its score_mod
-    (after the scale, before the mask), ``mask_mod`` as its block mask."""
+    (after the scale, before the mask), ``mask_mod`` as its block mask;
+    None when the run does not ask for the flex yardstick."""
     import torch
     from torch.nn.attention import flex_attention as fx
 
+    if not _FLEX.get("on"):
+        return None
     if "call" not in _FLEX:
         torch._dynamo.config.fail_on_recompile_limit_hit = True
         _FLEX["call"] = torch.compile(fx.flex_attention, dynamic=False)
@@ -1314,7 +1327,7 @@ def _flex_decode(q, k, v, pos, *, window, softcap, scale):
         return live[ki]
 
     call = _flex_call(q[:, :, None], k, v, softcap, mask_mod, scale)
-    return lambda: call()[:, :, 0]
+    return None if call is None else (lambda: call()[:, :, 0])
 
 
 def _op_counters():
@@ -2402,7 +2415,7 @@ def _check_flash(calls, report, label, device):
                                   window=kw.get("window"),
                                   softcap=kw.get("softcap"),
                                   scale=kw.get("scale"))
-        lib_ms = _launch_ms(lib, n=10)
+        lib_ms = None if lib is None else _launch_ms(lib, n=10)
         b_, h_, s_, d_ = q.shape
         pairs = _live_pairs(s_, k.shape[2], kw["causal"], kw["window"])
         ops = 4 * d_ * h_ * b_ * pairs
@@ -2448,8 +2461,9 @@ def _check_decode(calls, report, label, device):
         else:
             lib = _flex_decode(q, k, v, int(pos), window=kw.get("window"),
                                softcap=kw["softcap"], scale=kw.get("scale"))
-        lib_err = _close(2e-5, 2e-5)(lib(), want_o)[0]
-        lib_ms = _launch_ms(lib, n=20)
+        lib_err = None if lib is None else _close(2e-5, 2e-5)(lib(),
+                                                             want_o)[0]
+        lib_ms = None if lib is None else _launch_ms(lib, n=20)
         b_, h_, d_ = q.shape
         report("decode_attention", f"{label(i)}, pos {int(pos)}, f32", err,
                bad, ms, plain_ms, lib_ms,
@@ -3247,7 +3261,8 @@ def _bwd_plain64(q, k, v, o, lse, do, kw):
 def _library_backward(q, k, v, do, kw):
     """The library's backward of the same attention, on a graph built
     once: SDPA's, or a compiled ``flex_attention``'s where there is a
-    window or a softcap.  Returns (label, a call of the backward)."""
+    window or a softcap.  Returns (label, a call of the backward; None
+    where the run does not ask for the flex yardstick)."""
     import torch
     xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     if kw["window"] is None and kw["softcap"] is None:
@@ -3257,8 +3272,11 @@ def _library_backward(q, k, v, do, kw):
             enable_gqa=k.shape[1] != q.shape[1])
     else:
         label = "compiled flex_attention backward"
-        o = _flex_attention(*xs, causal=kw["causal"], window=kw["window"],
-                            softcap=kw["softcap"], scale=kw["scale"])()
+        fwd = _flex_attention(*xs, causal=kw["causal"], window=kw["window"],
+                              softcap=kw["softcap"], scale=kw["scale"])
+        if fwd is None:
+            return "none: the flex yardstick runs with --only flex", None
+        o = fwd()
     return label, lambda: torch.autograd.grad(o, xs, do, retain_graph=True)
 
 
@@ -3316,7 +3334,8 @@ def _bwd_case(device, i, case):
     if not label.startswith("edge"):
         try:
             lib, call = _library_backward(q, k, v, do, kw)
-            lib_ms = _median_ms(call, reps=5, warmup=2)
+            lib_ms = None if call is None else _median_ms(call, reps=5,
+                                                          warmup=2)
             del call
         except Exception as exc:   # a yardstick only: say why, go on
             lib = f"failed: {type(exc).__name__}: {str(exc)[:120]}"
@@ -3581,7 +3600,163 @@ def _train_gemma(device):
     torch.cuda.empty_cache()
     summary = dict(step_s=step_s, tokens_per_s=spec["batch"] * spec["seq"]
                    / step_s, peak_gb=peak, launches=launches,
-                   idle_share=1 - busy / step_s if busy else None)
+                   idle_share=1 - busy / step_s if busy else None,
+                   losses=losses, grad_norms=norms, step_times=times)
+    return summary, failures
+
+
+# Part (j): gemma-2b's train step at TRAIN's shapes on a (1, 1) mesh of
+# an NCCL world of one, its first TRAIN_MESH_STEPS steps held bitwise
+# against part (b)'s unsharded steps.
+TRAIN_MESH_STEPS = 2
+
+
+def _gemma_train_setup(device):
+    """gemma-2b's model, the launcher's flags and optimizer at TRAIN."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RuntimeFlags, build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    del device
+    model = build_model(get_config(TRAIN["arch"]))
+    flags = RuntimeFlags(attn_impl="chunked", loss_chunks=4,
+                         compute_dtype="float32",
+                         microbatches=TRAIN["microbatches"])
+    opt = AdamWConfig(lr=3e-4, warmup_steps=max(TRAIN["steps"] // 20, 5),
+                      total_steps=TRAIN["steps"])
+    return model, flags, opt
+
+
+def _unsharded_steps(device, n):
+    """``n`` donated unsharded steps of gemma-2b from the seeded state: the
+    losses, gradient norms and step seconds (part (b)'s, when part (j)
+    runs alone)."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.step import make_train_state, make_train_step
+    model, flags, opt = _gemma_train_setup(device)
+    state = make_train_state(model, torch.Generator(device=device
+                                                    ).manual_seed(0),
+                             opt, flags, device=device)
+    data = SyntheticLM(model.cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                       seed=0, device=device)
+    step = make_train_step(model, flags, opt, donate=True)
+    losses, norms, times = [], [], []
+    for i in range(n):
+        t1 = time.perf_counter()
+        state, metrics = step(state, data(i))
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t1)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=norms, step_times=times)
+
+
+def _train_mesh(device, ref=None):
+    """(j) gemma-2b at full width and depth through the sharded step on a
+    (1, 1) ("data", "model") mesh of an NCCL world of one: the state drawn
+    whole from the seeded generator and placed by ``state_shardings``,
+    each batch by ``batch_shardings``, TRAIN_MESH_STEPS donated steps with
+    the flash launches counted (36 forward and 36 backward a step).  Their
+    losses and gradient norms must equal ``ref``'s (part (b)'s unsharded
+    steps; without it, as with ``--only train_mesh``, the unsharded steps
+    run here first, one state at a time) bit for bit.  Then
+    ``compressed_psum`` over NCCL on the embedding's leaf (the largest
+    gradient), against ``dequantize(quantize(x))`` bitwise.  Returns
+    (summary, failures)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import SyntheticLM, make_batch
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize, quantize)
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.mesh import ensure_world, make_mesh
+    from repro_torch.shard.api import make_rules
+    from repro_torch.train.step import (batch_shardings, distribute,
+                                        make_train_state, make_train_step,
+                                        state_shardings)
+
+    n = TRAIN_MESH_STEPS
+    if ref is None:
+        ref = _unsharded_steps(device, n)
+    started = not dist.is_initialized()
+    ensure_world(device)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device)
+        rules = make_rules()
+        model, flags, opt = _gemma_train_setup(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        state = make_train_state(model, torch.Generator(device=device
+                                                        ).manual_seed(0),
+                                 opt, flags, device=device)
+        state = distribute(state, state_shardings(model, flags, mesh,
+                                                  rules))
+        host0 = make_batch(model.cfg, "train", TRAIN["batch"], TRAIN["seq"],
+                           seed=0, step=0)
+        data = SyntheticLM(model.cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                           seed=0, device=device,
+                           shardings=batch_shardings(host0, mesh, rules))
+        step = make_train_step(model, flags, opt, mesh, rules, donate=True)
+        fa.flash_attention_cuda.launches = 0
+        fa.flash_attention_bwd_cuda.launches = 0
+        losses, norms, times = [], [], []
+        for i in range(n):
+            t1 = time.perf_counter()
+            state, metrics = step(state, data(i))
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t1)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+        launches = {"forward": fa.flash_attention_cuda.launches,
+                    "backward": fa.flash_attention_bwd_cuda.launches}
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        x = state.params["embed"]["tokens"].to_local()
+        t1 = time.perf_counter()
+        got = compressed_psum(x, mesh, "data")
+        torch.cuda.synchronize(device)
+        psum_s = time.perf_counter() - t1
+        want = dequantize(*quantize(x))
+        psum_equal = bool(torch.equal(got, want))
+        psum_shape = list(x.shape)
+        del state, metrics, x, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    ref_losses = ref["losses"][:n]
+    ref_norms = ref["grad_norms"][:n]
+    # The first step of each run builds nothing more (the kernels are
+    # built), but its first-call costs differ: compare the later steps.
+    step_s = times[-1]
+    ref_s = statistics.median(ref["step_times"][1:n]
+                              or ref["step_times"][:n])
+    _line("train", part="(j) mesh 1x1", mesh=json.dumps([1, 1]),
+          backend="nccl", losses=json.dumps(losses),
+          grad_norms=json.dumps(norms), losses_unsharded=json.dumps(
+              ref_losses), grad_norms_unsharded=json.dumps(ref_norms),
+          bitwise_equal=losses == ref_losses and norms == ref_norms,
+          step_times=json.dumps([round(t, 4) for t in times]),
+          step_s=f"{step_s:.4f}", step_s_unsharded=f"{ref_s:.4f}",
+          step_ratio=f"{step_s / ref_s:.4f}", peak_gb=f"{peak:.2f}",
+          launches=json.dumps(launches), psum_shape=json.dumps(psum_shape),
+          psum_s=f"{psum_s:.4f}", psum_bitwise_equal=psum_equal)
+    per_step = model.cfg.n_layers * TRAIN["microbatches"]
+    failures = []
+    if losses != ref_losses or norms != ref_norms:
+        failures.append(f"(j) the mesh-of-one steps' losses {losses} and "
+                        f"norms {norms} differ from the unsharded "
+                        f"{ref_losses}, {ref_norms}")
+    if launches != {"forward": per_step * n, "backward": per_step * n}:
+        failures.append(f"(j) flash launches {launches}, expected "
+                        f"{per_step} of each a step")
+    if not psum_equal:
+        failures.append("(j) compressed_psum over NCCL differs from "
+                        "dequantize(quantize(x))")
+    summary = dict(step_s=step_s, step_s_unsharded=ref_s, peak_gb=peak,
+                   launches=launches, psum_s=psum_s)
     return summary, failures
 
 
@@ -4236,7 +4411,8 @@ def phase_train(device):
     """(a) the backward kernel at the zoo's training shapes, (b) gemma-2b's
     train step at full width and depth, (c) a kill-and-restart cycle, (d)
     the golden trajectory, (e) the no-gradient guard, then (f)-(i) of
-    :func:`phase_train_ssm`.  Returns (flash backward rows, gemma-2b's
+    :func:`phase_train_ssm` and (j) gemma-2b's sharded step on a mesh of
+    one (:func:`_train_mesh`).  Returns (flash backward rows, gemma-2b's
     summary, ssm_scan backward rows, the hybrid and ssm runs' summaries)."""
     t0 = time.perf_counter()
     rows, failures = [], []
@@ -4258,6 +4434,12 @@ def phase_train(device):
           part_s=f"{time.perf_counter() - t1:.1f}")
     ssm_rows, runs, bad = phase_train_ssm(device)
     failures += bad
+    t1 = time.perf_counter()
+    mesh_run, bad = _train_mesh(device, summary)
+    failures += bad
+    summary["mesh"] = mesh_run
+    _line("train", part="(j) mesh 1x1",
+          part_s=f"{time.perf_counter() - t1:.1f}")
     _line("train", phase_s=f"{time.perf_counter() - t0:.1f}")
     if failures:
         raise AssertionError(f"phase train: {failures}")
@@ -4354,7 +4536,10 @@ def main(argv=None) -> int:
              "train), flash_bwd (phase train's flash backward kernel "
              "cases alone), train_ssm (phase train's parts f-i: the "
              "ssm_scan backward kernel, xlstm-125m and zamba2-7b trained, "
-             "their smoke goldens) and ssm_bwd (part f alone): build, run "
+             "their smoke goldens), ssm_bwd (part f alone), train_mesh "
+             "(part j: gemma-2b's sharded step on a mesh of one, after "
+             "its unsharded steps) and flex (phase ops' attention cases "
+             "with the compiled flex_attention yardstick): build, run "
              "only their checks and times, and print no result line (a "
              "measurement run, not the smoke)")
     args = parser.parse_args(argv)
@@ -4399,15 +4584,18 @@ def main(argv=None) -> int:
         ops_only = tuple(k for k in only
                          if k not in ("masked_argmax", "batched", "service",
                                       "extensions", "zoo", "train",
-                                      "flash_bwd", "train_ssm", "ssm_bwd"))
+                                      "flash_bwd", "train_ssm", "ssm_bwd",
+                                      "flex", "train_mesh"))
         if "batched" in only:
             phase_kernel(device, tf_job, only_batched=True)
             phase_batched(device, tf_job)
         if "service" in only:
             _, tf_outs = _batched_tf_runs(device, tf_job)
             phase_service(device, tf_job, tf_outs)
-        if ops_only:
-            phase_ops(device, tf_job, only=ops_only)
+        _FLEX["on"] = "flex" in only
+        if ops_only or "flex" in only:
+            phase_ops(device, tf_job, only=ops_only or (
+                "flash_attention", "decode_attention"))
         if "masked_argmax" in only:
             _, failures = argmax_checks(device)
             if failures:
@@ -4418,6 +4606,13 @@ def main(argv=None) -> int:
             phase_zoo(device)
         if "train" in only:
             phase_train(device)
+        if "train_mesh" in only:
+            t1 = time.perf_counter()
+            failures = _train_mesh(device)[1]
+            _line("train", part="(j) mesh 1x1 with its unsharded steps",
+                  part_s=f"{time.perf_counter() - t1:.1f}")
+            if failures:
+                raise AssertionError(f"train_mesh: {failures}")
         if "train_ssm" in only:
             failures = phase_train_ssm(device)[2]
             if failures:
@@ -4479,6 +4674,8 @@ def main(argv=None) -> int:
         if entry["name"] == "flash_attention":
             entry["launches_by_path"]["gemma-2b train"] = \
                 train["launches"]["forward"]
+            entry["launches_by_path"]["gemma-2b train mesh 1x1"] = \
+                train["mesh"]["launches"]["forward"]
         if entry["name"] in ("ssm_scan", "flash_attention"):
             for arch, run in ssm_runs.items():
                 entry["launches_by_path"][f"{arch} train"] = \
@@ -4495,6 +4692,8 @@ def main(argv=None) -> int:
         "launches": train["launches"]["backward"],
         "launches_by_path": {"gemma-2b train":
                              train["launches"]["backward"],
+                             "gemma-2b train mesh 1x1":
+                             train["mesh"]["launches"]["backward"],
                              **{f"{arch} train":
                                 run["launches"]["flash_attention_bwd"]
                                 for arch, run in ssm_runs.items()}},

@@ -13,6 +13,15 @@ puts them on a given device (by default each leaf on its ``like`` leaf's
 device).  A bfloat16 leaf is stored as float32 (numpy has no bfloat16)
 and cast back on restore, as every leaf is cast to its ``like`` leaf's
 dtype.
+
+Sharded state (DTensor leaves): ``save`` gathers each leaf's full value
+(``full_tensor``, a collective every rank takes part in) before the
+writer thread starts, so no collective runs on that thread, and only
+rank 0 writes.  ``restore(..., shardings)`` places each leaf on the
+matching ``shard.NamedSharding``: every rank reads the files and keeps
+its own slice.  The checkpoint does not record the mesh it was written
+under, so a run saved under one mesh restores under another (the
+reference's elastic restart).
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 
@@ -60,6 +71,8 @@ def _describe(tree) -> str:
 
 
 def _to_host(x):
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -78,9 +91,12 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, state) -> None:
-        """Snapshot to the host, then (optionally) write in a background
-        thread."""
+        """Snapshot to the host (sharded leaves gathered whole), then
+        (optionally) write in a background thread; under a process group
+        only rank 0 writes."""
         host = tree_map(_to_host, state)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         if self._pending is not None:
             self._pending.join()                     # one writer in flight
         if self.async_write:
@@ -129,10 +145,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like, device=None):
+    def restore(self, step: int, like, shardings=None, *, device=None):
         """The checkpoint of ``step`` in the structure of ``like``, each
         leaf cast to its ``like`` leaf's dtype and put on ``device`` (by
-        default the ``like`` leaf's device)."""
+        default the ``like`` leaf's device); with ``shardings`` (a
+        matching tree of ``shard.NamedSharding``) each leaf becomes the
+        DTensor of its sharding, this rank keeping its slice."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         leaves = [np.load(d / f"leaf_{i:05d}.npy")
@@ -142,17 +160,22 @@ class CheckpointManager:
             raise ValueError(f"checkpoint has {len(leaves)} leaves, target "
                              f"{len(like_leaves)}")
 
-        def place(a, ref):
+        shards = (tree_leaves(shardings) if shardings is not None
+                  else [None] * len(leaves))
+
+        def place(a, ref, sh):
             if not isinstance(ref, torch.Tensor):
                 return a
             dev = ref.device if device is None else torch.device(device)
+            if sh is not None:
+                return sh.from_host(a, dev).to(ref.dtype)
             return torch.as_tensor(a, device=dev).to(ref.dtype)
 
-        return tree_unflatten(like, [place(a, r)
-                                     for a, r in zip(leaves, like_leaves)])
+        return tree_unflatten(like, [place(a, r, sh) for a, r, sh in
+                                     zip(leaves, like_leaves, shards)])
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, shardings=None, *, device=None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, like, device)
+        return step, self.restore(step, like, shardings, device=device)

@@ -5,9 +5,10 @@ arrays as the reference (the same generator, drawn in the same order), so
 both packages serve the same prompts, frames and vision prefixes.
 ``SyntheticLM`` places each step's batch on the port's device (the card
 unless asked; restart-safe: step k regenerates the stream a failed run
-saw), and ``Prefetcher`` keeps the next batches in flight on a
-background thread.  Sharded placement waits for the mesh slice (ROADMAP
-A12).
+saw); with ``shardings`` (``train.step.batch_shardings``) each rank puts
+only its shard of the global batch on the device, as a DTensor, and the
+global stream stays the same function of (seed, step).  ``Prefetcher``
+keeps the next batches in flight on a background thread.
 """
 
 from __future__ import annotations
@@ -66,18 +67,24 @@ def make_batch(cfg, shape_name: str, batch: int, seq: int, *, seed: int,
 class SyntheticLM:
     """Deterministic stream of global batches on ``device`` (the card
     unless asked): ``source(step)`` is ``make_batch(seed=seed,
-    step=step)`` as tensors."""
+    step=step)`` as tensors; with ``shardings`` (a dict of
+    ``shard.NamedSharding`` by leaf name) as DTensors, each rank placing
+    its own slice (no collective)."""
 
     def __init__(self, cfg, batch: int, seq: int, *, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", shardings=None):
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.seed = seed
         self.device = resolve_device(device)
+        self.shardings = shardings
 
     def __call__(self, step: int) -> dict:
         host = make_batch(self.cfg, "train", self.batch, self.seq,
                           seed=self.seed, step=step)
-        return {k: torch.as_tensor(np.asarray(v), device=self.device)
+        if self.shardings is None:
+            return {k: torch.as_tensor(np.asarray(v), device=self.device)
+                    for k, v in host.items()}
+        return {k: self.shardings[k].from_host(v, self.device)
                 for k, v in host.items()}
 
 

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import capi
 from repro_torch.kernels.flash_attention.kernel import DTYPES, check_heads
+from repro_torch.shard.local import reject
 
 __all__ = ["decode_attention_cuda", "launch", "prepare", "split_plan"]
 
@@ -79,6 +80,7 @@ def prepare(q, k, v, pos, *, scale=None, window=None, softcap=None):
     """Returns ``(args, out, keep)``: the C entry's arguments, the output
     tensor and the tensors ``args`` points into.  ``pos`` is a Python int
     (passed by value) or an integer tensor on the card (read there)."""
+    reject("decode_attention", q, k, v)
     dev = capi.require_cuda(_OP, q)
     b, h, d = q.shape
     kh, t = k.shape[1], k.shape[2]

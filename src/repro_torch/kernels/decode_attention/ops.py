@@ -6,8 +6,14 @@ from repro_torch.kernels.decode_attention import kernel as _kernel
 from repro_torch.kernels.decode_attention import ref as _ref
 from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
                                          resolve_mode)
+from repro_torch.shard.local import any_dtensor, reject, run_local
 
 __all__ = ["decode_attention"]
+
+# The operands' logical axes (q [B, H, D]; the caches, [B, KH, T, D] views
+# of the [B, T, KH, D] ring buffers).
+_Q_AXES = ("batch", "act_heads", None)
+_KV_AXES = ("batch", "act_kv_heads", "cache_seq", None)
 
 
 def decode_attention(q, k, v, pos, *, scale=None, window=None,
@@ -16,12 +22,21 @@ def decode_attention(q, k, v, pos, *, scale=None, window=None,
     position (a Python int or an integer tensor) -> [B, H, D].
 
     The kernel for CUDA tensors, the plain version for CPU tensors (see
-    ``kernels.dispatch``).  ``softcap`` caps the scores as the JAX model's
-    ``attend`` does (the TPU kernel has none).  ``bk`` is the TPU kernel's
-    key block, kept for its signature; the CUDA kernel picks its own.
+    ``kernels.dispatch``); DTensor operands run it on each rank's shard of
+    batch and heads (``shard.local``).  ``softcap`` caps the scores as the
+    JAX model's ``attend`` does (the TPU kernel has none).  ``bk`` is the
+    TPU kernel's key block, kept for its signature; the CUDA kernel picks
+    its own.
     """
     del bk
     kw = dict(scale=scale, window=window, softcap=softcap)
+    if any_dtensor(q, k, v):
+        return run_local(
+            "decode_attention",
+            lambda q, k, v: decode_attention(q, k, v, pos, force=force,
+                                             **kw),
+            [(q, _Q_AXES), (k, _KV_AXES), (v, _KV_AXES)], heads=(1, 1, 1),
+            groups=((0, 1), (0, 2)), outputs=((0, 1),))
     plain = lambda: _ref.decode_attention_ref(q, k, v, pos, **kw)
     if resolve_mode(force, q.device, op="decode_attention") == "ref":
         return plain()

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import capi
+from repro_torch.shard.local import reject
 
 __all__ = ["flash_attention_bwd_cuda", "flash_attention_cuda", "launch",
            "launch_bwd", "prepare", "prepare_bwd", "BWD_PHASES", "BwdPlan",
@@ -167,6 +168,7 @@ def prepare(q, k, v, *, scale=None, causal=True, window=None,
     tensor (``(o, lse)`` with ``want_lse``: lse [B, H, S] float32, float32
     inputs only) and the inputs ``args`` points into.  A float32 call
     takes :func:`fwd_plan`'s tiling."""
+    reject("flash_attention", q, k, v)
     dev = capi.require_cuda(_OP, q)
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
@@ -222,6 +224,7 @@ def prepare_bwd(q, k, v, o, lse, do, *, scale=None, causal=True,
     [B, H, S] and, where :func:`bwd_plan` splits the group, the workspace
     of partial dK and dV [2, n_split, B, KH, T, D]) and the tensors
     ``args`` points into."""
+    reject("flash_attention_bwd", q, k, v, o, lse, do)
     dev = capi.require_cuda(_BWD, q)
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]

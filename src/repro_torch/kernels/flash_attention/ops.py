@@ -9,7 +9,8 @@ the ``lse`` output and its backward the backward kernel
 (``csrc/flash_attention_bwd.cu``); on the CPU, or with ``force="ref"``,
 both are the plain versions (``ref.attention_fwd_ref``,
 ``ref.attention_bwd_ref``).  Training runs float32: a bfloat16 input that
-requires grad raises.
+requires grad raises.  DTensor operands (a sharded step) run the op on
+each rank's shard of batch and heads (``shard.local.run_local``).
 """
 
 from __future__ import annotations
@@ -19,8 +20,14 @@ import torch
 from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
+from repro_torch.shard.local import any_dtensor, reject, run_local
 
 __all__ = ["FlashAttention", "flash_attention"]
+
+# The operands' logical axes in this op's layout (q [B, H, S, D], k and v
+# [B, KH, T, D]): the reference constrains the same tensors in [B, S, H, D].
+_Q_AXES = ("batch", "act_heads", "act_seq", None)
+_KV_AXES = ("batch", "act_kv_heads", "act_seq", None)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -29,6 +36,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mode, kw):
+        reject("flash_attention", q, k, v)
         if mode == "kernel":
             o, lse = _kernel.flash_attention_cuda(q, k, v, want_lse=True,
                                                   **kw)
@@ -67,6 +75,12 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
     """
     del bq, bk
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if any_dtensor(q, k, v):
+        return run_local(
+            "flash_attention",
+            lambda q, k, v: flash_attention(q, k, v, force=force, **kw),
+            [(q, _Q_AXES), (k, _KV_AXES), (v, _KV_AXES)], heads=(1, 1, 1),
+            groups=((0, 1), (0, 2)), outputs=((0, 1),))
     mode = resolve_mode(force, q.device, op="flash_attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q.dtype != torch.float32:

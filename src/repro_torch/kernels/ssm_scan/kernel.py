@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import capi
+from repro_torch.shard.local import reject
 
 __all__ = ["BWD_PHASES", "BwdPlan", "PHASES", "Plan", "launch", "launch_bwd",
            "plan", "plan_bwd", "prepare", "prepare_bwd", "smem_bytes",
@@ -152,6 +153,7 @@ def prepare(k, v, q, log_decay, gate, *, chunk: int, initial_state=None):
     """Returns ``(args, (y, state), keep)``: the C entry's arguments, the
     outputs and the tensors ``args`` points into (the scratch among
     them)."""
+    reject("ssm_scan", k, v, q, log_decay, gate, initial_state)
     pl = plan(k, v, q, log_decay, gate, chunk=chunk,
               initial_state=initial_state)
     _fn()                     # built (or its build error raised) first
@@ -318,6 +320,7 @@ def prepare_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
     entry beside the shapes) and the tensors ``args`` points into.  ``states``
     and ``final_state`` are the forward's (:func:`ssm_scan_cuda` with
     ``want_states``); ``initial_state`` only says whether there was one."""
+    reject("ssm_scan_bwd", k, v, q, log_decay, gate, dy, d_final)
     dev = capi.require_cuda(_BWD, k)
     b, l, h, n = k.shape
     p = v.shape[-1]

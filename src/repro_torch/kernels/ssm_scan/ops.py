@@ -9,7 +9,9 @@ the card its forward is the kernel (whose scratch holds those states)
 and its backward the backward kernel (``csrc/ssm_scan_bwd.cu``); on the
 CPU, or with ``force="ref"``, both are the plain versions
 (``ref.linear_scan_fwd_ref``, ``ref.linear_scan_bwd_ref``).  Training
-runs float32: a bfloat16 input that requires grad raises.
+runs float32: a bfloat16 input that requires grad raises.  DTensor
+operands (a sharded step) run the scan on each rank's shard of batch and
+heads (``shard.local.run_local``).
 """
 
 from __future__ import annotations
@@ -19,8 +21,15 @@ import torch
 from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
 from repro_torch.kernels.ssm_scan import kernel as _kernel
 from repro_torch.kernels.ssm_scan import ref as _ref
+from repro_torch.shard.local import any_dtensor, reject, run_local
 
 __all__ = ["LinearScan", "linear_scan", "ssm_scan"]
+
+# The operands' logical axes: k, q [B, L, H, N], v [B, L, H, P], log_decay
+# and gate [B, L, H], the state [B, H, N, P].
+_SEQ_AXES = ("batch", "act_seq", "act_heads", None)
+_GATE_AXES = ("batch", "act_seq", "act_heads")
+_STATE_AXES = ("batch", "act_heads", None, None)
 
 
 class LinearScan(torch.autograd.Function):
@@ -32,6 +41,7 @@ class LinearScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, v, q, log_decay, gate, initial_state, mode, chunk):
         args = (k, v, q, log_decay, gate)
+        reject("ssm_scan", *args, initial_state)
         kw = dict(chunk=chunk, initial_state=initial_state)
         if mode == "kernel":
             y, s, states = _kernel.ssm_scan_cuda(*args, want_states=True,
@@ -73,9 +83,18 @@ def linear_scan(k, v, q, log_decay, gate, *, chunk: int,
     plain version for CPU tensors (see ``kernels.dispatch``);
     differentiable through :class:`LinearScan` (float32 only).
     """
+    ins = (k, v, q, log_decay, gate, initial_state)
+    if any_dtensor(*ins):
+        return run_local(
+            "ssm_scan",
+            lambda *a: linear_scan(*a[:5], chunk=chunk, initial_state=a[5],
+                                   force=force),
+            [(k, _SEQ_AXES), (v, _SEQ_AXES), (q, _SEQ_AXES),
+             (log_decay, _GATE_AXES), (gate, _GATE_AXES),
+             (initial_state, _STATE_AXES)], heads=(2, 2, 2, 2, 2, 1),
+            outputs=((1, 2), (1, 1)))
     kw = dict(chunk=chunk, initial_state=initial_state)
     mode = resolve_mode(force, k.device, op="ssm_scan")
-    ins = (k, v, q, log_decay, gate, initial_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in ins):
         if any(t is not None and t.dtype != torch.float32

@@ -1,4 +1,4 @@
-"""Training launcher — ``repro.launch.train`` on one card: config -> train
+"""Training launcher — ``repro.launch.train``: config -> mesh -> train
 state -> ``run_training`` with the fault-tolerance kit.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
@@ -7,20 +7,29 @@ state -> ``run_training`` with the fault-tolerance kit.
       --layers 27 --batch 2 --seq 2048 --microbatches 2 --steps 3 --ckpt none
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
       --smoke --steps 20 --batch 8 --seq 128 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
+      --batch 2 --seq 2048 --microbatches 2 --steps 4 --mesh 1x1
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch gemma-2b --smoke --steps 6 --mesh 2x2 --device cpu
 
 The reference's flags plus ``--device`` (the card unless asked) and
 ``--layers N``, which cuts the config's depth to N blocks (zamba2-7b's
 81 at float32 with AdamW's moments do not fit one card); the run prints
 the cut under ``reduced``.  The state is drawn on the device from a
 seeded generator and the step donates it (updates in place, the
-reference's ``donate_argnums``).  ``--mesh``
-and a ``--remat`` other than ``none`` raise: sharding and rematerialisation
-are ROADMAP A12's later items.  ``--ckpt none`` runs without checkpoints.
-Prints the reference's JSON keys (``final_step``, ``preempted``,
-``stragglers``, ``final_loss``) and ``step_s`` (the median step after the
-first, which builds the kernels), ``tokens_per_s``, ``peak_gb`` (peak
-allocated device memory), ``device``, ``layers`` and ``reduced`` (the
-depth cut as ``{"n_layers": [published, run]}``, or null).
+reference's ``donate_argnums``).  ``--mesh DxM`` trains on a
+("data", "model") mesh (``launch.mesh``): under ``torchrun`` on its ranks,
+else as a world of one (NCCL on the card, gloo with ``--device cpu``);
+the state is drawn whole on every rank and distributed by
+``state_shardings``, each batch placed by ``batch_shardings``, and rank 0
+prints the summary.  A ``--remat`` other than ``none`` raises:
+rematerialisation is ROADMAP A12's next item.  ``--ckpt none`` runs
+without checkpoints.  Prints the reference's JSON keys (``final_step``,
+``preempted``, ``stragglers``, ``final_loss``) and ``step_s`` (the
+median step after the first, which builds the kernels),
+``tokens_per_s``, ``peak_gb`` (peak allocated device memory),
+``device``, ``layers``, ``reduced`` (the depth cut as ``{"n_layers":
+[published, run]}``, or null) and ``mesh`` (``--mesh``, or null).
 """
 
 from __future__ import annotations
@@ -33,15 +42,20 @@ import statistics
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, make_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import ensure_world, make_mesh
 from repro_torch.models import RuntimeFlags, build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.fault_tolerance import RunConfig, run_training
-from repro_torch.train.step import make_train_state, make_train_step
+from repro_torch.shard.api import make_rules
+from repro_torch.train.step import (batch_shardings, distribute,
+                                    make_train_state, make_train_step,
+                                    state_shardings)
 
 __all__ = ["main", "run"]
 
@@ -49,7 +63,7 @@ __all__ = ["main", "run"]
 class _NoCheckpoint:
     """``--ckpt none``: nothing to restore, nothing written."""
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, shardings=None, *, device=None):
         return None, None
 
     def save(self, step, state):
@@ -61,10 +75,6 @@ class _NoCheckpoint:
 
 def run(args) -> dict:
     """Train as the parsed ``args`` say; returns the printed summary."""
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharded training waits for shard/api.py and "
-            "launch/mesh.py on torch.distributed (ROADMAP Queue A, A12)")
     if args.remat != "none":
         raise NotImplementedError(
             f"--remat {args.remat}: rematerialisation is not ported yet "
@@ -86,20 +96,35 @@ def run(args) -> dict:
                          grad_compress=args.grad_compress)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                       total_steps=args.steps)
+    mesh = rules = st_sh = b_sh = None
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split("x"))
+        ensure_world(device)
+        mesh = make_mesh(shape, ("data", "model"), device)
+        rules = make_rules()
+        st_sh = state_shardings(model, flags, mesh, rules)
+        b_sh = batch_shardings(make_batch(cfg, "train", args.batch, args.seq,
+                                          seed=0, step=0), mesh, rules)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=device).manual_seed(0)
     state = make_train_state(model, gen, opt, flags, device=device)
-    step = make_train_step(model, flags, opt, donate=True)
+    if st_sh is not None:
+        state = distribute(state, st_sh)
+    step = make_train_step(model, flags, opt, mesh, rules, donate=True)
     data = SyntheticLM(cfg, batch=args.batch, seq=args.seq, seed=0,
-                       device=device)
+                       device=device, shardings=b_sh)
     ckpt = (_NoCheckpoint() if args.ckpt == "none"
             else CheckpointManager(args.ckpt, keep=3))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     out = run_training(step, state, data, ckpt,
                        RunConfig(total_steps=args.steps,
                                  checkpoint_every=args.ckpt_every,
                                  log_every=max(args.steps // 20, 1)),
-                       log=lambda *a: print(*a, flush=True))
+                       state_shardings=st_sh,
+                       log=lambda *a: lead and print(*a, flush=True))
     times = out["step_times"]
     step_s = statistics.median(times[1:] or times) if times else None
     return {"final_step": out["step"], "preempted": out["preempted"],
@@ -112,7 +137,8 @@ def run(args) -> dict:
                         if device.type == "cuda" else None),
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
-            "layers": cfg.n_layers, "reduced": reduced}
+            "layers": cfg.n_layers, "reduced": reduced,
+            "mesh": args.mesh}
 
 
 def main(argv=None):
@@ -135,10 +161,15 @@ def main(argv=None):
                     help="checkpoint directory, or 'none'")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet: raises")
+                    help="e.g. '1x1' data x model (default: no mesh); "
+                         "under torchrun its ranks, else a world of one")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    print(json.dumps(run(ap.parse_args(argv))), flush=True)
+    out = run(ap.parse_args(argv))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(out), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

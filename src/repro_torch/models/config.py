@@ -162,9 +162,12 @@ class RuntimeFlags:
     the reference; the port always runs the attention kernels' ops
     (``models.attention.attend``) and keeps the fields so that one flags
     object describes a run in both packages.  The training step reads
-    ``loss_chunks``, ``microbatches`` and ``grad_compress``; ``remat``
-    other than "none" and the sharding fields wait for ROADMAP A12's later
-    items.
+    ``loss_chunks``, ``microbatches`` and ``grad_compress``; sharding
+    comes from the mesh and rules handed to the step factories
+    (``train.step``), as in the reference, and ``attn_shard`` and ``zero``
+    are not read (the port's attention is the kernel op on each rank's
+    batch and heads, and the moments always follow the parameters);
+    ``remat`` other than "none" waits for ROADMAP A12 item 3.
     """
 
     attn_impl: str = "chunked"     # chunked | naive  (naive: tiny tests only)

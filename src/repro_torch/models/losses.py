@@ -17,6 +17,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import unembed
+from repro_torch.shard.api import constrain
 
 __all__ = ["chunked_ce_from_hidden", "masked_unit_ce"]
 
@@ -24,6 +25,9 @@ __all__ = ["chunked_ce_from_hidden", "masked_unit_ce"]
 def _ce_chunk(embed_params, h, targets, mask, softcap):
     """h [B, C, D] -> (sum of nll, count) over the valid positions."""
     logits = unembed(embed_params, h, softcap=softcap)       # f32 [B, C, V]
+    # Under a mesh the vocab dim is gathered: the row's log-sum-exp and the
+    # target's logit are taken whole, as on one device.
+    logits = constrain(logits, ("batch", "act_seq", None))
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.take_along_dim(logits, targets.to(torch.int64)[..., None],
                                dim=-1)[..., 0]

@@ -17,6 +17,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec, rope
 from repro_torch.models.params import spec
+from repro_torch.shard.api import constrain
 
 __all__ = ["mla_specs", "mla_train", "mla_decode", "mla_cache_shape"]
 
@@ -67,6 +68,8 @@ def mla_train(p, x, cfg, positions, *, impl="chunked", chunk=1024,
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(k_nope.shape[:3] + (cfg.rope_dim,))],
                   dim=-1)
+    q = constrain(q, ("batch", "act_seq", "act_heads", None))
+    k = constrain(k, ("batch", "act_seq", "act_heads", None))
     qk = cfg.nope_dim + cfg.rope_dim
     # v_head_dim may differ from the q/k width: pad v for the shared
     # kernel, crop the output.

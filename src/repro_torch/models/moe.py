@@ -23,6 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import _act, mlp, mlp_specs
 from repro_torch.models.params import spec
+from repro_torch.shard.api import constrain
+from repro_torch.shard.local import any_dtensor, run_local
 
 __all__ = ["moe_specs", "moe_ffn", "router_aux_loss"]
 
@@ -87,7 +89,7 @@ def moe_ffn(p, x, cfg, *, impl: str = "gather", group_size: int = 2048):
     while t % s_g:
         s_g //= 2
     g = t // s_g
-    xt = x.reshape(g, s_g, d)
+    xt = constrain(x.reshape(g, s_g, d), ("moe_groups", None, None))
     logits = (xt @ p["router"]).to(torch.float32)            # [G, S_g, E]
     expert_idx, gates = _route(logits, cfg)                  # [G, S_g, K]
     y = _gather_moe(p, xt, expert_idx, gates, cfg, _capacity(s_g, cfg))
@@ -114,9 +116,16 @@ def dispatch_slots(expert_idx, n_experts: int, c: int):
     return flat_e, pos, pos < c
 
 
-def _gather_moe(p, xt, expert_idx, gates, cfg, c):
+# The [G, E, C, D] expert buffers: groups on the data axes, experts on
+# the model axis.
+_BUFFER_AXES = ("moe_dispatch", "experts_act", None, None)
+
+
+def _dispatch(xt, expert_idx, gates, e: int, c: int):
+    """Each group's expert buffers: (xe [G, E·C, D], each (token, k)
+    entry's slot [G, N] and its weight [G, N])."""
     g, s_g, d = xt.shape
-    e, k = cfg.n_experts, cfg.top_k
+    k = expert_idx.shape[-1]
     n = s_g * k
     flat_e, pos, keep = dispatch_slots(expert_idx, e, c)
     # Index map (g, e, c) -> source token row; s_g is the zero row.  It is
@@ -129,14 +138,46 @@ def _gather_moe(p, xt, expert_idx, gates, cfg, c):
     src[row[keep]] = token.expand(g, n)[keep]
     x_pad = torch.cat([xt, xt.new_zeros((g, 1, d))], dim=1)
     xe = torch.gather(x_pad, 1, src.view(g, e * c, 1).expand(g, e * c, d))
-    ye = _expert_mlp(p["experts"], xe.view(g, e, c, d), cfg.act)
-    # Combine: each (token, k) entry reads its slot (a dropped one reads a
-    # clamped slot and weighs it by 0) and mixes by its gate.
+    # A dropped entry reads a clamped slot and weighs it by 0.
     slot = flat_e * c + torch.clamp(pos, max=c - 1)
+    w = gates.reshape(g, n) * keep
+    return xe, slot, w
+
+
+def _combine(ye, slot, w, k: int):
+    """Each (token, k) entry reads its slot of ye [G, E, C, D] and mixes by
+    its gate -> [G, S_g, D]."""
+    g, e, c, d = ye.shape
+    n = slot.shape[1]
     out = torch.gather(ye.reshape(g, e * c, d), 1,
                        slot[..., None].expand(g, n, d))      # [G, N, D]
-    w = (gates.reshape(g, n) * keep).to(out.dtype)
-    return (out * w[..., None]).reshape(g, s_g, k, d).sum(dim=2)
+    return (out * w.to(out.dtype)[..., None]).reshape(g, n // k, k, d).sum(
+        dim=2)
+
+
+def _gather_moe(p, xt, expert_idx, gates, cfg, c):
+    """The gather dispatch.  Under a mesh the dispatch and the combine run
+    on each rank's groups (``moe_dispatch``); the expert MLP runs on the
+    experts' shards (``experts_act``)."""
+    g, s_g, d = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    groups = ("moe_dispatch", None, None)
+    if any_dtensor(xt):
+        xe, slot, w = run_local(
+            "moe_dispatch", lambda *a: _dispatch(*a, e, c),
+            [(xt, groups), (expert_idx, groups), (gates, groups)],
+            heads=(None,) * 3, outputs=((0, None),) * 3)
+    else:
+        xe, slot, w = _dispatch(xt, expert_idx, gates, e, c)
+    xe = constrain(xe.view(g, e, c, d), _BUFFER_AXES)
+    ye = constrain(_expert_mlp(p["experts"], xe, cfg.act), _BUFFER_AXES)
+    if any_dtensor(ye):
+        return run_local(
+            "moe_combine", lambda *a: _combine(*a, k),
+            [(ye, ("moe_dispatch", None, None, None)),
+             (slot, ("moe_dispatch", None)), (w, ("moe_dispatch", None))],
+            heads=(None,) * 3, outputs=((0, None),))
+    return _combine(ye, slot, w, k)
 
 
 def router_aux_loss(aux, n_experts: int):

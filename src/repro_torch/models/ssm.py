@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssm_scan.ops import linear_scan
 from repro_torch.models.layers import causal_conv1d, rmsnorm, rmsnorm_spec
 from repro_torch.models.params import spec
+from repro_torch.shard.api import constrain
 
 __all__ = ["chunked_linear_scan", "mamba2_specs", "mamba2_block",
            "mamba2_decode", "mamba2_state_shapes"]
@@ -83,6 +84,7 @@ def mamba2_block(p, x, cfg):
     y = y + p["d_skip"][None, None, :, None] * xs.to(torch.float32)
     y = y.reshape(b, l, d_in).to(x.dtype)
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    y = constrain(y, ("batch", "act_seq", "act_ffn"))
     return y @ p["out_proj"], {"conv": new_conv, "ssm": s_fin.to(x.dtype)}
 
 

@@ -49,6 +49,7 @@ from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
                                        unembed)
 from repro_torch.models.losses import chunked_ce_from_hidden, masked_unit_ce
 from repro_torch.models.params import spec
+from repro_torch.shard.api import constrain, empty as shard_empty
 
 __all__ = ["transformer_specs", "transformer_loss", "transformer_prefill",
            "transformer_decode", "transformer_cache_shapes",
@@ -145,6 +146,9 @@ def _attention(p, x, cfg: ModelConfig, positions, window, cache=None,
     else:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", "act_seq", "act_heads", None))
+    k = constrain(k, ("batch", "act_seq", "act_kv_heads", None))
+    v = constrain(v, ("batch", "act_seq", "act_kv_heads", None))
     scale = (cfg.query_scale if cfg.query_scale is not None
              else cfg.head_dim ** -0.5)
     kw = dict(causal=cfg.causal, window=window, softcap=cfg.attn_softcap,
@@ -155,6 +159,7 @@ def _attention(p, x, cfg: ModelConfig, positions, window, cache=None,
     else:
         kv = attn_mod.write_kv(cache[0], cache[1], k, v, pos)
         o = attn_mod.attend(q, *kv, pos=pos, **kw)
+    o = constrain(o, ("batch", "act_seq", "act_heads", None))
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), kv
 
 
@@ -220,6 +225,7 @@ def _forward(params, cfg, flags, batch, on_cache=None, want_aux=False):
     receives each layer's cache rows.  Returns (hidden, the summed router
     loss when ``want_aux``, else None)."""
     x, positions = _embed_inputs(params, cfg, flags, batch)
+    x = constrain(x, ("batch", "act_seq", None))
     total = None
     for name, moe, n in _stacks(cfg):
         for i, layer in enumerate(_unstack(params[name])):
@@ -305,7 +311,9 @@ def transformer_prefill(params, cfg: ModelConfig, flags, batch,
     b, s_len = ref.shape[:2]
     dt = getattr(torch, flags.compute_dtype)
     shapes = transformer_cache_shapes(cfg, b, cache_len)
-    caches = {stack: {name: torch.empty(shape, dtype=dt, device=ref.device)
+    axes = transformer_cache_axes(cfg)
+    caches = {stack: {name: shard_empty(shape, axes[stack][name], dt,
+                                        ref.device)
                       for name, shape in per.items()}
               for stack, per in shapes.items()}
 
@@ -329,6 +337,7 @@ def transformer_decode(params, cfg: ModelConfig, flags, caches, tokens, pos):
                          f"step")
     x = embed(params["embed"], tokens, scale=cfg.embed_scale,
               d=cfg.d_model).to(getattr(torch, flags.compute_dtype))
+    x = constrain(x, ("batch", None, None))
     b = tokens.shape[0]
     if cfg.mrope_sections:
         positions = torch.full((3, b, 1), int(pos), device=x.device)

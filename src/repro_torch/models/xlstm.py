@@ -25,6 +25,7 @@ from repro_torch.models.layers import (causal_conv1d, mlp, mlp_specs,
                                        rmsnorm, rmsnorm_spec, wide)
 from repro_torch.models.params import spec
 from repro_torch.models.ssm import chunked_linear_scan
+from repro_torch.shard.local import elementwise
 
 __all__ = ["mlstm_specs", "mlstm_block", "mlstm_decode", "mlstm_state_shapes",
            "slstm_specs", "slstm_block", "slstm_decode", "slstm_state_shapes"]
@@ -63,7 +64,7 @@ def mlstm_specs(cfg):
 def _mlstm_gates(p, xc):
     """log forget (<= 0) and clipped-exp input gate.  xc [B,L,d_in] ->
     [B,L,nh] each, float32 (float64 for float64 inputs)."""
-    logf = F.logsigmoid(wide(xc @ p["wf"]) + p["bf"])
+    logf = elementwise(F.logsigmoid, wide(xc @ p["wf"]) + p["bf"])
     i = torch.exp(torch.clamp_max(wide(xc @ p["wi"]) + p["bi"], _ICLIP))
     return logf, i
 

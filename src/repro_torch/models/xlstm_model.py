@@ -24,6 +24,7 @@ from repro_torch.models.xlstm import (mlstm_block, mlstm_decode, mlstm_specs,
                                       mlstm_state_shapes, slstm_block,
                                       slstm_decode, slstm_specs,
                                       slstm_state_shapes)
+from repro_torch.shard.api import constrain
 
 __all__ = ["xlstm_specs", "xlstm_loss", "xlstm_prefill", "xlstm_decode_step",
            "xlstm_cache_shapes", "xlstm_cache_axes", "block_kinds"]
@@ -70,7 +71,8 @@ def _forward(params, cfg, flags, batch, states=None):
     """The blocks in order over the whole sequence -> (final-normed hidden
     [B, S, D], every block's final state).  ``states`` (one entry a block,
     as ``xlstm_cache_shapes``) start the blocks; None starts them empty."""
-    x = _embed(params, cfg, flags, batch["tokens"])
+    x = constrain(_embed(params, cfg, flags, batch["tokens"]),
+                  ("batch", "act_seq", None))
     new_states = []
     for i, (kind, p) in enumerate(zip(block_kinds(cfg), params["blocks"])):
         fn = mlstm_block if kind == "mlstm" else slstm_block

@@ -32,6 +32,7 @@ from repro_torch.models.losses import chunked_ce_from_hidden
 from repro_torch.models.params import spec
 from repro_torch.models.ssm import (mamba2_block, mamba2_decode,
                                     mamba2_specs, mamba2_state_shapes)
+from repro_torch.shard.api import constrain
 
 __all__ = ["zamba_specs", "zamba_loss", "zamba_prefill", "zamba_decode",
            "zamba_cache_shapes", "zamba_cache_axes"]
@@ -78,6 +79,7 @@ def _shared_attn(p, x, cfg, positions, cache=None, pos=None):
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", "act_seq", "act_heads", None))
     if cache is None:
         o = attn_mod.attend(q, k, v, causal=True, window=cfg.window)
         new_c = (k, v)
@@ -99,6 +101,7 @@ def _forward(params, cfg, flags, batch):
     dt = getattr(torch, flags.compute_dtype)
     x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale,
               d=cfg.d_model).to(dt)
+    x = constrain(x, ("batch", "act_seq", None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     states, kvs = [], []
     for i in range(cfg.n_layers):

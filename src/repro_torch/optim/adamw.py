@@ -13,6 +13,12 @@ moments into the given tensors leaf by leaf and returns them: the same
 arithmetic, without a second copy of the parameters and moments (30 GB at
 gemma-2b's 2.51 B float32 parameters); it stands for the reference
 launcher's ``donate_argnums``.
+
+On a sharded state (DTensor leaves, the moments placed as their
+parameters) the global norm is DTensor's sum over the shards, and the
+update, elementwise, runs on each rank's local shards with the schedule's
+scalars as plain tensors: the arithmetic of each entry is the unsharded
+one, without DTensor's dispatch for each of a leaf's dozen operations.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 
@@ -78,6 +85,29 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
+def _local(x):
+    """A replicated DTensor scalar's value as a plain tensor."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _upd_shards(upd, p, g, m, v):
+    """``upd`` on the local shards of DTensor leaves placed alike (a
+    gradient still on other placements is reduced onto its parameter's
+    first); results wrapped back on ``p``'s placements (the given DTensors
+    themselves where ``upd`` wrote in place)."""
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    if not tuple(p.placements) == tuple(m.placements) == tuple(v.placements):
+        raise ValueError("AdamW on a sharded state: the moments must be "
+                         "placed as their parameters (state_shardings)")
+    leaves = (p, m, v)
+    local = [x.to_local() for x in leaves]
+    out = upd(local[0], g.to_local(), local[1], local[2])
+    return tuple(x if o is lo else DTensor.from_local(
+        o, x.device_mesh, x.placements, shape=x.shape, stride=x.stride())
+        for o, lo, x in zip(out, local, leaves))
+
+
 def _clip_scale(gn, max_norm: float):
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
@@ -93,15 +123,17 @@ def apply_updates(params, grads, state: OptState, cfg: AdamWConfig, *,
     """One AdamW step.  Returns (new_params, new_state, {"grad_norm",
     "lr"}).  The gradients are clipped leaf by leaf as the step reaches
     them (the arithmetic of :func:`clip_by_global_norm`)."""
-    gn = global_norm(grads)
+    gn = _local(global_norm(grads))
     scale = _clip_scale(gn, cfg.clip_norm)
     step = state.step + 1
-    lr = warmup_cosine(cfg, step)
+    lr = warmup_cosine(cfg, _local(step))
     b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** step.to(torch.float32)
-    bc2 = 1 - b2 ** step.to(torch.float32)
+    bc1 = 1 - b1 ** _local(step).to(torch.float32)
+    bc2 = 1 - b2 ** _local(step).to(torch.float32)
 
     def upd(p, g, m, v):
+        if isinstance(p, DTensor):
+            return _upd_shards(upd, p, g, m, v)
         g = g.to(torch.float32) * scale
         m_new = b1 * m + (1 - b1) * g
         v_new = b2 * v + (1 - b2) * torch.square(g)

@@ -14,7 +14,9 @@ checkpoint/restart, preemption, a straggler watchdog.
 
 A step's time ends at ``torch.cuda.synchronize`` on the card (the
 reference's ``block_until_ready``).  The summary also carries every
-step's seconds (``step_times``).
+step's seconds (``step_times``).  A sharded run passes its
+``state_shardings``: the resumed state is placed on them, whatever mesh
+wrote the checkpoint.
 """
 
 from __future__ import annotations
@@ -87,15 +89,18 @@ def _block(metrics) -> None:
 
 def run_training(step_fn: Callable, state, data_source: Callable,
                  ckpt: CheckpointManager, run_cfg: RunConfig,
-                 device=None, log: Callable = print) -> dict:
+                 state_shardings=None, device=None,
+                 log: Callable = print) -> dict:
     """Drive training with checkpoint/restart.  Returns the run summary.
 
     step_fn(state, batch) -> (state, metrics); data_source(step) -> batch.
-    A restored checkpoint goes onto ``device`` (by default each leaf onto
-    its leaf's device in ``state``).
+    A restored checkpoint goes onto ``state_shardings`` (a tree of
+    ``shard.NamedSharding`` matching ``state``) if given, else onto
+    ``device`` (by default each leaf onto its leaf's device in
+    ``state``).
     """
     start = 0
-    restored = ckpt.restore_latest(state, device)
+    restored = ckpt.restore_latest(state, state_shardings, device=device)
     if restored[0] is not None:
         start, state = restored
         log(f"[resume] restored checkpoint at step {start}")

@@ -1,4 +1,4 @@
-"""Train and serve step factories — ``repro.train.step`` on one card.
+"""Train and serve step factories — ``repro.train.step``.
 
 ``make_train_step`` builds the reference's training step:
 
@@ -13,26 +13,43 @@
 The step is functional, state in and state out, like the reference's.
 With ``donate=True`` it writes the new parameters and moments into the
 state's tensors (the reference launcher's ``donate_argnums=(0,)``), which
-spares a copy of them; the numbers are the same.  Sharding
-(``state_shardings``, ``batch_shardings``) waits for the mesh slice
-(ROADMAP A12).
+spares a copy of them; the numbers are the same.
 
-``make_serve_step`` builds the greedy prefill and decode closures.
+With a ``mesh`` (a ``DeviceMesh``, ``launch.mesh.make_mesh``) and
+``rules`` (``shard.make_rules``) the step runs on DTensors: the state as
+``state_shardings`` places it (ZeRO: the moments follow the parameters,
+the compression residual too), the batch as ``batch_shardings`` places
+it, the body under ``shard.activation_ctx`` so that the models'
+``constrain`` calls and the kernel ops see the rules.  Each microbatch's
+gradients are reduced onto their parameters' placements as they come,
+and the metrics come back as plain replicated tensors.  On a mesh whose
+axes all have size 1 every spec is replicated and the step computes what
+the unsharded one does, bit for bit.
+
+``make_serve_step`` builds the greedy prefill and decode closures, under
+the same context when given a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.distributed.compression import compress_with_feedback
-from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.params import (spec_leaves, tree_leaves, tree_map,
+                                       tree_unflatten, unflatten)
 from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates,
                                      init_opt)
+from repro_torch.shard.api import activation_ctx, constrain, sharding_for
 
 __all__ = ["TrainState", "make_train_state", "make_train_step",
-           "loss_and_grads", "abstract_state", "make_serve_step"]
+           "loss_and_grads", "abstract_state", "make_serve_step",
+           "state_shardings", "batch_shardings", "distribute", "full",
+           "mesh_context"]
 
 
 class TrainState(NamedTuple):
@@ -67,6 +84,58 @@ def abstract_state(model, flags, dtype=torch.bfloat16) -> TrainState:
     return TrainState(params, opt, residual)
 
 
+def state_shardings(model, flags, mesh, rules) -> TrainState:
+    """The ``NamedSharding`` tree matching a TrainState: each parameter by
+    its spec's logical axes; ZeRO: the moments follow the parameters, and
+    so does the compression residual (with ``grad_compress``); the step
+    counter is replicated."""
+    specs = model.specs()
+    p_sh = unflatten([(path, sharding_for(s.shape, s.axes, rules, mesh))
+                      for path, s in spec_leaves(specs)], specs)
+    opt = OptState(mu=p_sh, nu=p_sh, step=sharding_for((), (), rules, mesh))
+    return TrainState(p_sh, opt, p_sh if flags.grad_compress else ())
+
+
+def _batch_axes(x) -> tuple:
+    """A batch leaf's logical axes: "batch" first, [3, B, S] position ids
+    on B."""
+    if x.ndim == 3 and x.shape[0] == 3:
+        return (None, "batch", None)
+    return ("batch",) + (None,) * (x.ndim - 1)
+
+
+def batch_shardings(batch: dict, mesh, rules) -> dict:
+    """The ``NamedSharding`` of each batch leaf: sharded on its batch
+    dim."""
+    return {k: sharding_for(x.shape, _batch_axes(x), rules, mesh)
+            for k, x in batch.items()}
+
+
+def distribute(tree, shardings):
+    """Each leaf of ``tree`` (the full value, the same on every rank) as
+    the DTensor of the matching sharding in ``shardings``."""
+    return tree_map(lambda t, sh: sh.distribute(t), tree, shardings)
+
+
+def full(tree):
+    """Each DTensor leaf gathered to its full value (a collective: every
+    rank calls it); other leaves as they are."""
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, rules):
+    """The steps' context: nothing without a mesh; with one, the
+    activation rules, and plain tensors made inside a step (position ids,
+    masks, constants) taken as replicated."""
+    if mesh is None:
+        yield
+        return
+    with activation_ctx(mesh, rules), implicit_replication():
+        yield
+
+
 def _microbatch(batch: dict, k: int, i: int) -> dict:
     """Microbatch ``i`` of ``k``: the reference's split (a leaf whose
     first axis divides by k and is not 3 is cut along it; [3, B, S]
@@ -81,18 +150,29 @@ def _microbatch(batch: dict, k: int, i: int) -> dict:
             out[name] = x[i * n:(i + 1) * n]
         else:
             out[name] = x
+        out[name] = constrain(out[name], _batch_axes(out[name]))
     return out
 
 
+def _placed_like(g, p):
+    """A DTensor gradient reduced onto its parameter's placements (the
+    data-parallel sum)."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _grads(model, flags, params, batch):
-    """(loss, metrics, float32 gradient leaves) of one (micro)batch."""
+    """(loss, metrics, float32 gradient leaves) of one (micro)batch; on a
+    mesh each gradient on its parameter's placements."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = model.loss(tree_unflatten(params, leaves), batch,
                                    flags)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
-             else g.to(torch.float32) for p, g in zip(leaves, grads)]
+             else _placed_like(g.to(torch.float32), p)
+             for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
@@ -123,27 +203,30 @@ def loss_and_grads(model, flags, params, batch):
     return l_sum / k, {}, tree_unflatten(params, g_sum)
 
 
-def make_train_step(model, flags, opt_cfg: AdamWConfig, *,
-                    donate: bool = False):
+def make_train_step(model, flags, opt_cfg: AdamWConfig, mesh=None,
+                    rules=None, *, donate: bool = False):
     """Returns train_step(state, batch) -> (state, metrics): ``loss``,
     ``grad_norm`` and ``lr`` (with one microbatch also ``ce`` and
-    ``aux``), 0-d tensors on the state's device."""
+    ``aux``), 0-d tensors on the state's device.  With ``mesh`` and
+    ``rules`` the state and batch are DTensors (``state_shardings``,
+    ``batch_shardings``) and the metrics plain replicated tensors."""
 
     def train_step(state: TrainState, batch):
-        loss, metrics, grads = loss_and_grads(model, flags, state.params,
-                                              batch)
-        residual = state.residual
-        if flags.grad_compress:
-            grads, residual = compress_with_feedback(grads, residual)
-        params, opt, om = apply_updates(state.params, grads, state.opt,
-                                        opt_cfg, inplace=donate)
-        return (TrainState(params, opt, residual),
-                dict(metrics, loss=loss, **om))
+        with mesh_context(mesh, rules):
+            loss, metrics, grads = loss_and_grads(model, flags, state.params,
+                                                  batch)
+            residual = state.residual
+            if flags.grad_compress:
+                grads, residual = compress_with_feedback(grads, residual)
+            params, opt, om = apply_updates(state.params, grads, state.opt,
+                                            opt_cfg, inplace=donate)
+            metrics = full(dict(metrics, loss=loss, **om))
+        return TrainState(params, opt, residual), metrics
 
     return train_step
 
 
-def make_serve_step(model, flags):
+def make_serve_step(model, flags, mesh=None, rules=None):
     """Returns (prefill_fn, decode_fn), both greedy.
 
     prefill_fn(params, batch, cache_len) -> (next_tokens [B, 1], caches),
@@ -152,14 +235,19 @@ def make_serve_step(model, flags):
     prefill gives a token for every position [B, S] and no cache);
     decode_fn(params, caches, tokens [B, 1], pos) -> (next_tokens [B, 1],
     caches) — one new token per sequence against the standing cache.
+    With ``mesh`` and ``rules`` both run under the rules on DTensor
+    parameters and inputs, and the caches they make are DTensors.
     """
 
     def prefill(params, batch, cache_len):
-        logits, caches = model.prefill(params, batch, flags, cache_len)
-        return torch.argmax(logits, dim=-1), caches
+        with mesh_context(mesh, rules):
+            logits, caches = model.prefill(params, batch, flags, cache_len)
+            return torch.argmax(logits, dim=-1), caches
 
     def decode(params, caches, tokens, pos):
-        logits, new_caches = model.decode(params, caches, tokens, pos, flags)
-        return torch.argmax(logits, dim=-1), new_caches
+        with mesh_context(mesh, rules):
+            logits, new_caches = model.decode(params, caches, tokens, pos,
+                                              flags)
+            return torch.argmax(logits, dim=-1), new_caches
 
     return prefill, decode

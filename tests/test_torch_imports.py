@@ -47,3 +47,14 @@ def test_smoke_script_alone_fails_without_the_package(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_the_sharding_modules_are_among_those_imported():
+    """The mesh slice's modules are in the package the probe walks."""
+    import pkgutil
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.shard", "repro_torch.shard.api",
+            "repro_torch.shard.local", "repro_torch.launch.mesh",
+            "repro_torch.distributed.compression"} <= names
