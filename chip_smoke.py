@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only zoo
     python3 chip_smoke.py --only train
     python3 chip_smoke.py --only flash_bwd
+    python3 chip_smoke.py --only remat
 
 With ``--only`` it builds, runs the named kernels' checks and times of
 phases ops and analysis (or, for ``batched``, the batched step's launches
@@ -16,7 +17,8 @@ of phase kernel and phase batched; for ``service``, phase batched's
 tf-cnn runs (d) and then phase service; for ``extensions``, phase
 extensions; for ``zoo``, the zoo's serving runs and golden logits of
 phase model; for ``train``, phase train; for ``flash_bwd``, phase
-train's (a) alone), and prints no result line (a measurement run).
+train's (a) alone; for ``remat``, phase train's (b) with (k), then the
+dry run's cells), and prints no result line (a measurement run).
 Without it, phases one line each with its times, then two JSON lines:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
@@ -187,7 +189,21 @@ Without it, phases one line each with its times, then two JSON lines:
    require grad; (f)-(i) the hybrid and ssm families
    (:func:`phase_train_ssm`); (j) gemma-2b's steps through the sharded
    step on a (1, 1) mesh of an NCCL world of one, bitwise (b)'s, and
-   ``compressed_psum`` over NCCL (:func:`_train_mesh`);
+   ``compressed_psum`` over NCCL (:func:`_train_mesh`); (k) within (b),
+   before its steps, step 0's ``loss_and_grads`` from the same state and
+   batch under ``remat`` none, full and dots: the loss and every gradient
+   bitwise equal, the flash launches (36 + 36; 72 + 36 under full and
+   dots), each call's peak memory (lower under full) and seconds, and
+   the memory a forward of microbatch 0 holds for its backward (less
+   under dots than none, and less under full than dots)
+   (:func:`_train_remat`); after the phase's timed parts, in two
+   processes at once, ``python -m repro_torch.launch.dryrun`` on two
+   cells (gemma-2b
+   train_4k and decode_32k on the (16, 16) mesh of a fake world, meta
+   tensors, no card), their counts and roofline or their error on
+   ``[dryrun]`` lines that the smoke does not depend on (the fake process
+   group is a private module of torch, and DTensor's strategies differ
+   between its versions);
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed phase raises, so the script exits non-zero and prints no result
@@ -1034,7 +1050,8 @@ def _attention_cases(device):
                         ).to(dtype)
         for label, kw in variants:
             kw = dict(kw, scale=GEMMA2["scale"])
-            pairs = _live_pairs(s, s, kw["causal"], kw["window"])
+            ops, nbytes = fa.cost(q, k, v, causal=kw["causal"],
+                                  window=kw["window"])
             if kw["softcap"] is None and kw["window"] is None:
                 lib = (lambda q=q, k=k, v=v, kw=kw: sdpa(
                     q, k, v, is_causal=kw["causal"], scale=kw["scale"],
@@ -1049,13 +1066,13 @@ def _attention_cases(device):
                     q, k, v, **kw, force="ref"),
                 prep=lambda q=q, k=k, v=v, kw=kw: fa.prepare(q, k, v, **kw),
                 launch=fa.launch, compare=_close(*tol),
-                nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
-                ops=4 * d * h * pairs, peak=peak, library=lib, reps=5,
+                nbytes=nbytes, ops=ops, peak=peak, library=lib, reps=5,
                 plain_reps=3, extra=dict(
                     B=1, H=h, KH=kh, S=s, T=s, D=d,
-                    live_pairs_per_head=pairs,
+                    live_pairs_per_head=fa.live_pairs(s, s, kw["causal"],
+                                                      kw["window"]),
                     **_f32_flash_extra(dtype, 1, h, kh, s, s, d, kw,
-                                       4 * d * h * pairs, q, k, v))))
+                                       ops, nbytes))))
 
     edges = [(e, torch.bfloat16, BF16_TOL, BF16_OPS_PER_S)
              for e in FLASH_EDGES]
@@ -1074,7 +1091,7 @@ def _attention_cases(device):
             v[..., 128:] = 0
         kw = dict(causal=causal, window=window, softcap=softcap,
                   scale=d_ ** -0.5)
-        pairs = _live_pairs(s_, t_, causal, window)
+        ops, nbytes = fa.cost(q, k, v, causal=causal, window=window)
         lib = None
         if softcap is None and window is None and (s_ == t_ or not causal):
             lib = (lambda q=q, k=k, v=v, kw=kw: sdpa(
@@ -1088,13 +1105,12 @@ def _attention_cases(device):
                 q, k, v, **kw, force="ref"),
             prep=lambda q=q, k=k, v=v, kw=kw: fa.prepare(q, k, v, **kw),
             launch=fa.launch, compare=_close(*tol),
-            nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
-            ops=4 * d_ * h_ * pairs, peak=peak, library=lib,
+            nbytes=nbytes, ops=ops, peak=peak, library=lib,
             reps=20, plain_reps=3, extra=dict(
                 B=1, H=h_, KH=kh_, S=s_, T=t_, D=d_,
-                live_pairs_per_head=pairs,
+                live_pairs_per_head=fa.live_pairs(s_, t_, causal, window),
                 **_f32_flash_extra(dtype, 1, h_, kh_, s_, t_, d_, kw,
-                                   4 * d_ * h_ * pairs, q, k, v))))
+                                   ops, nbytes))))
 
     # decode_attention: gemma2-9b at B = 8, global cache and local ring.
     b = DECODE_B
@@ -1124,11 +1140,9 @@ def _attention_cases(device):
             # q and o, and the K/V rows of the live slots only; with no
             # live slot the answer is the mean of V, which SDPA does not
             # compute.
-            nbytes = 2 * _tensor_bytes(q) + _tensor_bytes(k, v) * live // t
-            ops = 4 * d * h * b * live
+            ops, nbytes = da.cost(q, k, v, pos, window=window)
             if live == 0:
-                lib, nbytes = None, 2 * _tensor_bytes(q) + _tensor_bytes(v)
-                ops = 2 * d * h * b * t
+                lib = None
             cases.append(OpCase(
                 "decode_attention", f"{label}, {str(dtype)[6:]}",
                 run=lambda q=q, k=k, v=v, p=pos_t, kw=kw:
@@ -1152,6 +1166,7 @@ def _attention_cases(device):
                     device=device).transpose(1, 2)
     pos_t = torch.tensor(z["pos"], dtype=torch.int32, device=device)
     kw = dict(scale=z["d"] ** -0.5, window=None)
+    z_ops, z_bytes = da.cost(q, k, v, z["pos"])
     cases.append(OpCase(
         "decode_attention",
         f"B {z['b']}, KH {z['kh']}, G 1, D {z['d']}, T {z['t']} "
@@ -1161,8 +1176,7 @@ def _attention_cases(device):
                                                force="ref"),
         prep=lambda: da.prepare(q, k, v, pos_t, **kw),
         launch=da.launch, compare=_close(2e-5, 2e-5),
-        nbytes=2 * _tensor_bytes(q) + _tensor_bytes(k, v),
-        ops=4 * z["d"] * z["kh"] * z["b"] * z["t"], peak=FP32_OPS_PER_S,
+        nbytes=z_bytes, ops=z_ops, peak=FP32_OPS_PER_S,
         library=lambda: sdpa(q[:, :, None], k, v,
                              scale=kw["scale"])[:, :, 0],
         reps=20, plain_reps=5,
@@ -1214,33 +1228,20 @@ def _xlstm_scan_case(device, x=XLSTM_SCAN):
         extra=dict(B=b, L=l, H=h, N=n, P=p, chunk=chunk, **work))
 
 
-def _f32_flash_extra(dtype, b, h, kh, s, t, d, kw, ops, q, k, v):
+def _f32_flash_extra(dtype, b, h, kh, s, t, d, kw, ops, nbytes):
     """A float32 flash case's split-TF32 plan (``kernel.fwd_plan``) and its
     bound in split TF32 (three TF32 products for each float32 one, at
-    495 TFLOP/s, or the bytes); nothing for bf16."""
+    495 TFLOP/s, or the bytes; ``ops`` and ``nbytes`` from
+    ``kernel.cost``); nothing for bf16."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     if dtype != torch.float32:
         return {}
     plan = fa.fwd_plan(b, h, kh, s, t, d, kw["causal"], kw["window"])
-    byte_ms = (2 * _tensor_bytes(q) + _tensor_bytes(k, v)) / \
-        HBM_BYTES_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_split_tf32_ms=max(3 * ops / TF32_OPS_PER_S * 1e3,
                                         byte_ms),
                 plan=plan._asdict())
-
-
-def _live_pairs(s, t, causal, window):
-    """(query, key) pairs that the mask keeps, per head."""
-    import numpy as np
-    qp = np.arange(s)[:, None]
-    kp = np.arange(t)[None, :]
-    ok = np.ones((s, t), bool)
-    if causal:
-        ok &= kp <= qp
-    if window is not None:
-        ok &= kp > qp - window
-    return int(ok.sum())
 
 
 def _live_mask(t, pos, window):
@@ -1956,9 +1957,10 @@ def phase_service(device, tf_job, tf_outs):
 # --------------------------------------------------------------------------- #
 ZAMBA = dict(arch="zamba2-7b", batch=4, prompt=1000, gen=32)
 # Serving runs in phase model and the zoo: the first with the launch
-# counts, then a repeat for the spread of the rates (3 runs until the
-# script passed 1100 s; printed as `reduced` on the medians' lines).
-SERVE_RUNS = 2
+# counts, then repeats for the spread of the rates (3 runs until the
+# script passed 1100 s, 2 until remat's part (k) and the dry run came;
+# printed as `reduced` on the medians' lines).
+SERVE_RUNS = 1
 SERVE_REDUCED = json.dumps({"serve_runs": [3, SERVE_RUNS]})
 # ssm_scan against the plain version evaluated in float64 on the same
 # inputs: |kernel - exact| <= SSM_RTOL·|exact| + SSM_ATOL·max|exact|, per
@@ -2034,47 +2036,16 @@ def _profile(label, fn, wall_s):
     return busy
 
 
-def _unique_bytes(t):
-    """Bytes a tensor holds once, however its strides repeat them (a head
-    stride of 0 reads one row for every head)."""
-    n = 1
-    for size, stride in zip(t.shape, t.stride()):
-        if stride != 0:
-            n *= size
-    return n * t.element_size()
-
-
-def _ssm_work(args, kw, chunk):
-    """Bytes (inputs once, y and the state once) and float32 operations of
-    one scan from its shapes, by two algorithms.  The recurrence, step by
-    step: per row the decay, the outer product and the add over N·P, the
-    gated key and q·S (5·N·P + N), the first row of each (batch, head)
-    without the decay against a zero state.  The chunked form the kernel
-    runs: per causal pair of a chunk the q·k dot, the weight and its share
-    of the value product; per row the update, and the carry after the
-    first chunk or from a given initial state."""
-    k, v = args[0], args[1]
-    b, l, h, n = k.shape
-    p = v.shape[-1]
-    nbytes = sum(_unique_bytes(t) for t in args) + 4 * b * h * p * (l + n)
-    if kw.get("initial_state") is not None:
-        nbytes += 4 * b * h * n * p
-    zero = kw.get("initial_state") is None
-    recurrence = b * h * (l * (5 * n * p + n) - zero * 2 * n * p)
-    sizes = [min(chunk, l - c0) for c0 in range(0, l, chunk)]
-    pairs = sum(c * (c + 1) // 2 for c in sizes)
-    chunked = b * h * (pairs * (2 * n + 2 * p + 3) + l * (2 * n * p + 2 * p)
-                       + (l - zero * sizes[0]) * (2 * n * p + p))
-    return nbytes, recurrence, chunked
-
-
 def _ssm_bound(args, kw, chunk, dtype):
     """Bytes, operations and peak of the least time over the algorithms:
     the recurrence on the CUDA cores whatever the input type; the chunked
     form on the CUDA cores, on the tensor cores at the inputs' type (bf16),
     and in split TF32 (three products for each, the float32 form the
-    kernel runs).  Returns (bytes, ops, peak, fields naming them)."""
-    nbytes, recurrence, chunked = _ssm_work(args, kw, chunk)
+    kernel runs), from ``kernel.work``.  Returns (bytes, ops, peak, fields
+    naming them)."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    nbytes, recurrence, chunked = sk.work(
+        *args, chunk=chunk, initial_state=kw.get("initial_state"))
     forms = [(recurrence, FP32_OPS_PER_S, "recurrence"),
              (chunked, FP32_OPS_PER_S, "chunked"),
              (3 * chunked, TF32_OPS_PER_S, "chunked, split TF32")]
@@ -2417,15 +2388,14 @@ def _check_flash(calls, report, label, device):
                                   scale=kw.get("scale"))
         lib_ms = None if lib is None else _launch_ms(lib, n=10)
         b_, h_, s_, d_ = q.shape
-        pairs = _live_pairs(s_, k.shape[2], kw["causal"], kw["window"])
-        ops = 4 * d_ * h_ * b_ * pairs
+        ops, nbytes = fa.cost(q, k, v, causal=kw["causal"],
+                              window=kw["window"])
         report("flash_attention", f"{label(i)}, f32", err, bad, ms,
-               plain_ms, lib_ms, 2 * _tensor_bytes(q) + _tensor_bytes(k, v),
-               ops, B=b_, H=h_, KH=k.shape[1], S=s_,
+               plain_ms, lib_ms, nbytes, ops, B=b_, H=h_, KH=k.shape[1], S=s_,
                T=k.shape[2], D=d_, window=kw.get("window"),
                softcap=kw.get("softcap"),
                **_f32_flash_extra(q.dtype, b_, h_, k.shape[1], s_,
-                                  k.shape[2], d_, kw, ops, q, k, v))
+                                  k.shape[2], d_, kw, ops, nbytes))
         del prep, o, keep
 
 
@@ -2465,10 +2435,10 @@ def _check_decode(calls, report, label, device):
                                                              want_o)[0]
         lib_ms = None if lib is None else _launch_ms(lib, n=20)
         b_, h_, d_ = q.shape
+        ops, nbytes = da.cost(q, k, v, int(pos), window=kw.get("window"))
         report("decode_attention", f"{label(i)}, pos {int(pos)}, f32", err,
-               bad, ms, plain_ms, lib_ms,
-               2 * _tensor_bytes(q) + _tensor_bytes(k, v) * live // t_,
-               4 * d_ * h_ * b_ * live, B=b_, H=h_, KH=k.shape[1], T=t_,
+               bad, ms, plain_ms, lib_ms, nbytes, ops, B=b_, H=h_,
+               KH=k.shape[1], T=t_,
                D=d_, live_slots=live, window=kw.get("window"),
                softcap=kw.get("softcap"), k_strides=list(k.stride()),
                library_err=lib_err)
@@ -3339,10 +3309,8 @@ def _bwd_case(device, i, case):
             del call
         except Exception as exc:   # a yardstick only: say why, go on
             lib = f"failed: {type(exc).__name__}: {str(exc)[:120]}"
-    pairs = _live_pairs(s, t, causal, window)
-    ops = 10 * d * h * b * pairs          # five products of 2.D a pair
-    nbytes = 4 * _tensor_bytes(q) + 2 * _tensor_bytes(k, v) + \
-        _tensor_bytes(lse)
+    # Five products of 2.D a live pair (kernel.cost_bwd).
+    ops, nbytes = fa.cost_bwd(q, k, v, causal=causal, window=window)
     # The yardstick: the products in float32 at the CUDA cores' rate.
     # Beside it, the kernel's own form: split TF32 on the tensor cores,
     # three products for each, as _ssm_bound counts ssm_scan's.
@@ -3555,8 +3523,12 @@ def _train_gemma(device):
           launches=json.dumps(kern_launches),
           launches_ref=json.dumps(ref_launches),
           rel_gap=json.dumps(gaps), rtol=json.dumps(TRAIN_REF_RTOL))
+    remat, remat_failures = _train_remat(device, model, flags, state.params,
+                                         batch0)
 
     step = make_train_step(model, flags, opt, donate=True)
+    # (b)'s peak is that of the donated steps ((k) reset the counter).
+    torch.cuda.reset_peak_memory_stats(device)
     fa.flash_attention_cuda.launches = 0
     fa.flash_attention_bwd_cuda.launches = 0
     losses, norms, times = [], [], []
@@ -3571,6 +3543,11 @@ def _train_gemma(device):
                 "backward": fa.flash_attention_bwd_cuda.launches}
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     step_s = statistics.median(times[1:])
+    _line("train", part="(k) remat", arch=cfg.name, card=json.dumps(_smi()),
+          whole_step_peak_gb=f"{peak:.2f}",
+          **{f"{m}_{k}": (json.dumps(v) if isinstance(v, list) else
+                          f"{v:.4f}" if isinstance(v, float) else v)
+             for m, run in remat.items() for k, v in run.items()})
     busy = _profile(f"{cfg.name} train step",
                     lambda: step(state, data(spec["steps"])), step_s)
     _line("train", losses=json.dumps(losses), grad_norms=json.dumps(norms),
@@ -3595,14 +3572,178 @@ def _train_gemma(device):
     if losses[0] != kern[0]:
         failures.append(f"step 0's loss {losses[0]} differs from its "
                         f"earlier run {kern[0]}: not deterministic")
+    failures += remat_failures
     del state, metrics, batch0
     gc.collect()
     torch.cuda.empty_cache()
     summary = dict(step_s=step_s, tokens_per_s=spec["batch"] * spec["seq"]
                    / step_s, peak_gb=peak, launches=launches,
                    idle_share=1 - busy / step_s if busy else None,
-                   losses=losses, grad_norms=norms, step_times=times)
+                   losses=losses, grad_norms=norms, step_times=times,
+                   remat=remat)
     return summary, failures
+
+
+# Part (k): step 0 of gemma-2b's training under each remat policy.
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _train_remat(device, model, flags, params, batch):
+    """(k) gemma-2b's step 0 (``loss_and_grads`` at TRAIN's shapes, its 2
+    microbatches) from one state and batch under ``remat`` none, full and
+    dots: the loss and every gradient leaf bitwise equal across the three
+    (none's gradients held on the host while the others run), the flash
+    launches read around each call (36 forward and 36 backward without
+    remat; under full and dots the backward runs each layer's forward
+    again: 72 and 36), the peak device memory from a reset before the
+    call to the gradients, before AdamW (lower under full than none),
+    each call's seconds, and then the memory that a forward of microbatch
+    0 holds for its backward (:func:`_held_gb`; what a policy keeps: full
+    keeps each layer's input, dots those and the outputs of the products
+    without batch dimensions, none everything, so none > dots > full).
+    Returns ({policy: run}, failures)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.step import loss_and_grads
+
+    runs, failures, want = {}, [], None
+    per_step = model.cfg.n_layers * flags.microbatches
+    for remat in REMAT_POLICIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        fa.flash_attention_cuda.launches = 0
+        fa.flash_attention_bwd_cuda.launches = 0
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(
+            model, dataclasses.replace(flags, remat=remat), params, batch)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        launches = [fa.flash_attention_cuda.launches,
+                    fa.flash_attention_bwd_cuda.launches]
+        leaves = tree_leaves(grads)
+        if want is None:
+            want = (loss.item(), [g.to("cpu") for g in leaves])
+            equal = True
+        else:
+            equal = loss.item() == want[0] and len(leaves) == len(want[1]) \
+                and all(torch.equal(g, h.to(device))
+                        for g, h in zip(leaves, want[1]))
+        del grads, leaves
+        held = _held_gb(device, model, dataclasses.replace(flags, remat=remat),
+                        params, batch)
+        runs[remat] = dict(seconds=seconds, peak_gb=peak, held_gb=held,
+                           launches=launches, loss=loss.item(),
+                           bitwise_equal=equal)
+        del loss
+        expect = [per_step if remat == "none" else 2 * per_step, per_step]
+        if launches != expect:
+            failures.append(f"(k) remat={remat}: flash launches {launches}, "
+                            f"expected {expect}")
+        if not equal:
+            failures.append(f"(k) remat={remat}: the loss or a gradient "
+                            "differs from remat='none'")
+    del want
+    gc.collect()
+    if not runs["full"]["peak_gb"] < runs["none"]["peak_gb"]:
+        failures.append(f"(k) peak under full {runs['full']['peak_gb']:.2f} "
+                        f"GB not below none's {runs['none']['peak_gb']:.2f}")
+    held = [runs[m]["held_gb"] for m in ("none", "dots", "full")]
+    if not held[0] > held[1] > held[2]:
+        failures.append(f"(k) memory held for the backward (none, dots, "
+                        f"full) {held} GB is not decreasing")
+    return runs, failures
+
+
+def _held_gb(device, model, flags, params, batch):
+    """GB of device memory that the forward of ``batch``'s microbatch 0
+    under ``flags`` leaves allocated for its backward (the loss's graph),
+    read before the graph is dropped."""
+    import torch
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.train.step import _microbatch
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    mb = _microbatch(batch, flags.microbatches, 0)
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    with torch.enable_grad():
+        loss, _ = model.loss(tree_unflatten(params, leaves), mb, flags)
+    torch.cuda.synchronize(device)
+    held = (torch.cuda.memory_allocated(device) - before) / 1e9
+    del loss
+    return held
+
+
+# The dry run on the card's machine: cells through the command, its fake
+# process group (a private testing module of torch) and meta tensors
+# asking no card.  Their lines report them; the smoke does not depend on
+# them (DTensor's strategies differ between torch versions: the first
+# cell is the one asked for, the second a serving cell).
+DRYRUN_CELLS = (("gemma-2b", "train_4k", "single"),
+                ("gemma-2b", "decode_32k", "single"))
+
+
+def _dryrun_json(cell):
+    return ROOT / "build" / "dryrun" / f"{'__'.join(cell)}.json"
+
+
+def _start_dryrun():
+    """Start ``python -m repro_torch.launch.dryrun`` on each of
+    DRYRUN_CELLS, all at once (the card hidden from them), each
+    cell's JSON of an earlier run deleted first; returns [(cell, process,
+    start time)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    for cell in DRYRUN_CELLS:
+        _dryrun_json(cell).unlink(missing_ok=True)
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2], "--out",
+         str(ROOT / "build" / "dryrun")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter())
+        for cell in DRYRUN_CELLS]
+
+
+def _finish_dryrun(started):
+    """Wait for the dry runs and print a line each: its exit code and
+    seconds, then the JSON's counts and roofline, or its error's last
+    line and the port's frames above it."""
+    for cell, proc, t0 in started:
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        path = _dryrun_json(cell)
+        fields = dict(cell="__".join(cell), rc=proc.returncode,
+                      seconds=f"{time.perf_counter() - t0:.1f}")
+        res = json.loads(path.read_text()) if path.exists() else {}
+        if "roofline" in res:
+            fields.update({k: res[k] for k in (
+                "chips", "flops_per_device", "bytes_per_device",
+                "wire_bytes_per_device", "argument_size_in_bytes",
+                "model_flops_ratio", "mfu_upper_bound", "run_s")})
+            fields["roofline"] = json.dumps(res["roofline"])
+            fields["kernels"] = json.dumps(res["kernels"])
+        else:
+            lines = (res.get("error") or err).strip().splitlines()
+            fields["error"] = json.dumps(lines[-1:])
+            fields["frames"] = json.dumps(
+                [ln.strip() for ln in lines if "repro_torch" in ln][-6:])
+        _line("dryrun", **fields)
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
 
 
 # Part (j): gemma-2b's train step at TRAIN's shapes on a (1, 1) mesh of
@@ -3906,46 +4047,6 @@ def _ssm_bwd_inputs(device, i, case):
         r(b, l, h, p), r(b, h, n, p) if dfin else None
 
 
-def _ssm_bwd_work(args, kw, dy, d_final, states):
-    """Bytes (each input once, each gradient written once) and float32
-    operations of the backward by two algorithms, counted as
-    :func:`_ssm_work` counts the forward (a multiply-add two).  The
-    recurrence, row by row from the last: S_t again from S_{t-1} (the
-    decay, the gated outer product and the add, 3·N·P + N), its gradient
-    G_t = a_{t+1}·G_{t+1} + q_t dy_tᵀ (3·N·P), dq = S_t dy_t, dk̃ = G_t v_t
-    and dṽ = G_tᵀ k_t (2·N·P each), the gating, dg = k·dk̃ and d cum = q·dq
-    - g·dg and its reverse sum (5·N + P + 3); the first row's S without
-    its decay and add against a zero state, the last row's G without them
-    when there is no dS_final and <S_final, dS_final> when there is.  The chunked form the kernel
-    runs: per causal pair of a chunk the scores dy·v and q·k, the weight
-    exp(cum_i - cum_j) and its products with the scores and the gate, and
-    the three products dq, dk̃, dṽ (6·N + 4·P + 5); per row the four state
-    products (ΔG, the carry S_{c-1} dy, G v, Gᵀ k: 8·N·P) and their row
-    scales, the gating, dg, d cum and its sum (8·N + 2·P + 5), the carry
-    skipped in the first chunk against a zero state and G's products in
-    the last without dS_final; per chunk the reverse pass (2·N·P)."""
-    k, v = args[0], args[1]
-    b, l, h, n = k.shape
-    p = v.shape[-1]
-    chunk = kw["chunk"]
-    zero = kw.get("initial_state") is None
-    no_df = d_final is None
-    np_ = n * p
-    recurrence = b * h * (l * (12 * np_ + 5 * n + p + 3)
-                          - zero * 2 * np_ + (1 - 2 * no_df) * 2 * np_)
-    sizes = [min(chunk, l - c0) for c0 in range(0, l, chunk)]
-    pairs = sum(c * (c + 1) // 2 for c in sizes)
-    chunked = b * h * (pairs * (6 * n + 4 * p + 5)
-                       + l * (8 * np_ + 8 * n + 2 * p + 5)
-                       - zero * sizes[0] * (2 * np_ + n)
-                       - no_df * sizes[-1] * (4 * np_ + n + p)
-                       + len(sizes) * 2 * np_ + (not no_df) * 2 * np_)
-    ins = sum(_unique_bytes(t) for t in args) + _unique_bytes(dy) + \
-        _unique_bytes(states) + 4 * b * h * n * p * (1 + (not no_df))
-    outs = 4 * b * l * h * (2 * n + p + 2) + 4 * b * h * n * p
-    return ins + outs, recurrence, chunked
-
-
 def _ssm_bwd_case(device, i, case):
     """One backward shape: driven through the op (forward and backward
     launches counted), the kernel against the plain backward evaluated in
@@ -4010,7 +4111,9 @@ def _ssm_bwd_case(device, i, case):
     kernel_ms = {name: round(_launch_ms(lambda bit=bit: sk.launch_bwd(
         prep, bit), n=5, warmup=1), 5)
         for name, bit in sk.BWD_PHASES.items()}
-    nbytes, recurrence, chunked = _ssm_bwd_work(args, kw, dy, dfin, states)
+    nbytes, recurrence, chunked = sk.work_bwd(
+        *args, dy, dfin, chunk=kw["chunk"],
+        initial_state=kw.get("initial_state"), states=states)
     ops = min(recurrence, chunked)
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4440,6 +4543,7 @@ def phase_train(device):
     summary["mesh"] = mesh_run
     _line("train", part="(j) mesh 1x1",
           part_s=f"{time.perf_counter() - t1:.1f}")
+    _finish_dryrun(_start_dryrun())
     _line("train", phase_s=f"{time.perf_counter() - t0:.1f}")
     if failures:
         raise AssertionError(f"phase train: {failures}")
@@ -4538,7 +4642,9 @@ def main(argv=None) -> int:
              "ssm_scan backward kernel, xlstm-125m and zamba2-7b trained, "
              "their smoke goldens), ssm_bwd (part f alone), train_mesh "
              "(part j: gemma-2b's sharded step on a mesh of one, after "
-             "its unsharded steps) and flex (phase ops' attention cases "
+             "its unsharded steps), remat (part b, gemma-2b's steps, with "
+             "part k: step 0 under remat none, full and dots; and the dry "
+             "run's cell) and flex (phase ops' attention cases "
              "with the compiled flex_attention yardstick): build, run "
              "only their checks and times, and print no result line (a "
              "measurement run, not the smoke)")
@@ -4555,10 +4661,7 @@ def main(argv=None) -> int:
     set_cuda_determinism()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    smi = _smi()
     _line("device", kind=json.dumps(kind), count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
     print(smi, flush=True)
@@ -4585,7 +4688,7 @@ def main(argv=None) -> int:
                          if k not in ("masked_argmax", "batched", "service",
                                       "extensions", "zoo", "train",
                                       "flash_bwd", "train_ssm", "ssm_bwd",
-                                      "flex", "train_mesh"))
+                                      "flex", "train_mesh", "remat"))
         if "batched" in only:
             phase_kernel(device, tf_job, only_batched=True)
             phase_batched(device, tf_job)
@@ -4606,6 +4709,11 @@ def main(argv=None) -> int:
             phase_zoo(device)
         if "train" in only:
             phase_train(device)
+        if "remat" in only:
+            failures = _train_gemma(device)[1]
+            _finish_dryrun(_start_dryrun())
+            if failures:
+                raise AssertionError(f"remat: {failures}")
         if "train_mesh" in only:
             t1 = time.perf_counter()
             failures = _train_mesh(device)[1]
@@ -4676,6 +4784,9 @@ def main(argv=None) -> int:
                 train["launches"]["forward"]
             entry["launches_by_path"]["gemma-2b train mesh 1x1"] = \
                 train["mesh"]["launches"]["forward"]
+            for m, run in train["remat"].items():
+                entry["launches_by_path"][
+                    f"gemma-2b step 0 remat {m}"] = run["launches"][0]
         if entry["name"] in ("ssm_scan", "flash_attention"):
             for arch, run in ssm_runs.items():
                 entry["launches_by_path"][f"{arch} train"] = \
@@ -4694,6 +4805,9 @@ def main(argv=None) -> int:
                              train["launches"]["backward"],
                              "gemma-2b train mesh 1x1":
                              train["mesh"]["launches"]["backward"],
+                             **{f"gemma-2b step 0 remat {m}":
+                                run["launches"][1]
+                                for m, run in train["remat"].items()},
                              **{f"{arch} train":
                                 run["launches"]["flash_attention_bwd"]
                                 for arch, run in ssm_runs.items()}},

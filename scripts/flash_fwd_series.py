@@ -199,9 +199,7 @@ def run_case(case, old_fn, flex, device):
         row["library"] = "flex_attention (compiled)"
     row["library_ms"] = (None if lib is None
                          else cs._launch_ms(lib, n=n, warmup=2))
-    pairs = cs._live_pairs(s, t, causal, window)
-    ops = 4 * d * h * b * pairs
-    nbytes = 2 * q.numel() * 4 + 2 * k.numel() * 4
+    ops, nbytes = fa.cost(q, k, v, causal=causal, window=window)
     byte_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
     row["bound_ms"] = max(ops / cs.FP32_OPS_PER_S * 1e3, byte_ms)
     row["bound_split_tf32_ms"] = max(3 * ops / cs.TF32_OPS_PER_S * 1e3,

@@ -20,7 +20,7 @@ N 192, P 193; zamba2-7b's widths at chunks 64 and 128) it prints one
 - ``bound_ms`` (the smaller of the chunked form's and the recurrence's
   float32 operations at 67 TFLOP/s, or the bytes at 3.35 TB/s) and
   ``bound_split_tf32_ms`` (three TF32 products of the chunked form's
-  count at 495 TFLOP/s), as ``chip_smoke._ssm_bwd_work`` counts them;
+  count at 495 TFLOP/s), as ``kernel.work_bwd`` counts them;
   ``useful_tflops``: the chunked form's float32 operations over ``ms``;
 - ``errs``: each gradient's largest error against the plain backward
   evaluated in float64, held within ``chip_smoke.BWD_TOL`` times its
@@ -170,8 +170,9 @@ def run_case(i, case, old_fn, device):
     row["kernel_ms"] = {k: timed(lambda bit=bit: sk.launch_bwd(prep, bit))
                         for k, bit in sk.BWD_PHASES.items()}
     del want
-    nbytes, recurrence, chunked = cs._ssm_bwd_work(args, kw, dy, dfin,
-                                                   states)
+    nbytes, recurrence, chunked = sk.work_bwd(
+        *args, dy, dfin, chunk=kw["chunk"],
+        initial_state=kw.get("initial_state"), states=states)
     bytes_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
     row["bound_ms"] = max(min(recurrence, chunked) / cs.FP32_OPS_PER_S
                           * 1e3, bytes_ms)

@@ -41,6 +41,19 @@ def require_cuda(op: str, t: torch.Tensor) -> torch.device:
     return t.device
 
 
+def require_meta(op: str, t: torch.Tensor) -> torch.device:
+    """The device of a kernel's meta branch (shapes only, nothing run)."""
+    if t.device.type != "meta":
+        raise ValueError(f"{op}: the meta branch takes meta tensors, got "
+                         f"{t.device}")
+    return t.device
+
+
+def nbytes(*ts) -> int:
+    """Bytes of the tensors (None skipped), each counted whole."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 def check(op: str, name: str, t: torch.Tensor, dtype, shape, device, *,
           contiguous: bool = True) -> None:
     """Raise unless ``t`` lies on ``device`` with ``dtype`` (one dtype or a

@@ -12,7 +12,10 @@ allocates, and the combine kernel folds them in fixed split order
 K and V are read through their strides: each row of D values contiguous,
 the batch, head and slot strides free (the same for K and V).  So a cache
 kept as [B, T, KH, D], the reference's layout, goes in as its transposed
-view without a copy.
+view without a copy.  :func:`decode_attention_meta` runs the same checks
+on meta tensors and returns an empty output (the dry run's branch,
+``kernels.dispatch``); :func:`cost` counts a call's operations and
+bytes, which both ``chip_smoke.py``'s bounds and the dry run read.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from repro_torch.kernels import capi
 from repro_torch.kernels.flash_attention.kernel import DTYPES, check_heads
 from repro_torch.shard.local import reject
 
-__all__ = ["decode_attention_cuda", "launch", "prepare", "split_plan"]
+__all__ = ["decode_attention_cuda", "launch", "prepare", "split_plan",
+           "decode_attention_meta", "live_slots", "cost"]
 
 _OP = "decode_attention"
 # Outputs a block holds: G·D query-head values of one KV head.
@@ -76,12 +80,8 @@ def _check_cache(name, t, dtype, shape, device):
                          f"that are multiples of 4, got {t.stride()}")
 
 
-def prepare(q, k, v, pos, *, scale=None, window=None, softcap=None):
-    """Returns ``(args, out, keep)``: the C entry's arguments, the output
-    tensor and the tensors ``args`` points into.  ``pos`` is a Python int
-    (passed by value) or an integer tensor on the card (read there)."""
-    reject("decode_attention", q, k, v)
-    dev = capi.require_cuda(_OP, q)
+def _check(q, k, v, pos, window, softcap, dev):
+    """The kernel's rules on its inputs (on ``dev``)."""
     b, h, d = q.shape
     kh, t = k.shape[1], k.shape[2]
     capi.check(_OP, "q", q, DTYPES, (b, h, d), dev)
@@ -100,10 +100,21 @@ def prepare(q, k, v, pos, *, scale=None, window=None, softcap=None):
         raise ValueError(f"{_OP}: window={window} must be positive")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"{_OP}: softcap={softcap} must be positive")
+    if isinstance(pos, torch.Tensor) and pos.numel() != 1:
+        raise ValueError(f"{_OP}: pos must be a scalar")
+
+
+def prepare(q, k, v, pos, *, scale=None, window=None, softcap=None):
+    """Returns ``(args, out, keep)``: the C entry's arguments, the output
+    tensor and the tensors ``args`` points into.  ``pos`` is a Python int
+    (passed by value) or an integer tensor on the card (read there)."""
+    reject("decode_attention", q, k, v)
+    dev = capi.require_cuda(_OP, q)
+    _check(q, k, v, pos, window, softcap, dev)
+    b, h, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
     pos_t = None
     if isinstance(pos, torch.Tensor):
-        if pos.numel() != 1:
-            raise ValueError(f"{_OP}: pos must be a scalar")
         pos_t = pos.to(device=dev, dtype=torch.int32).reshape(1)
         pos_val = 0
     else:
@@ -122,6 +133,42 @@ def prepare(q, k, v, pos, *, scale=None, window=None, softcap=None):
             capi.ptr(pos_t), pos_val, *k.stride()[:3], n_split, per,
             capi.stream(dev))
     return args, o, (q, k, v, pos_t, part)
+
+
+def decode_attention_meta(q, k, v, pos, *, scale=None, window=None,
+                          softcap=None):
+    """The output on the meta device after :func:`prepare`'s checks: the
+    dry run's stand-in for a launch.  ``pos`` must be a Python int there:
+    the live slots, and so the work, follow its value."""
+    reject("decode_attention", q, k, v)
+    dev = capi.require_meta(_OP, q)
+    _check(q, k, v, pos, window, softcap, dev)
+    if isinstance(pos, torch.Tensor):
+        raise ValueError(f"{_OP}: on the meta device pos must be a Python "
+                         "int (the live slots follow its value)")
+    return torch.empty_like(q)
+
+
+def live_slots(t: int, pos: int, window=None) -> int:
+    """Ring slots that hold a live key at ``pos``: slot i holds position
+    pos - ((pos - i) mod t), live when it is >= 0 and within the window."""
+    if pos < 0:
+        return 0
+    return min(t, pos + 1, t if window is None else window)
+
+
+def cost(q, k, v, pos: int, *, window=None):
+    """(operations, bytes) of one call at write position ``pos``: two
+    products of 2·D a live slot for each query head, q read and o written
+    once, the K and V rows of the live slots read once.  With no live slot
+    the answer is the mean of V (each row read, D adds a head)."""
+    b, h, d = q.shape
+    t = k.shape[2]
+    live = live_slots(t, int(pos), window)
+    if live == 0:
+        return 2 * d * h * b * t, 2 * capi.nbytes(q) + capi.nbytes(v)
+    return (4 * d * h * b * live,
+            2 * capi.nbytes(q) + capi.nbytes(k, v) * live // t)
 
 
 def launch(args) -> None:

@@ -4,8 +4,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import kernel as _kernel
 from repro_torch.kernels.decode_attention import ref as _ref
-from repro_torch.kernels.dispatch import (declare_kernel, require_no_grad,
-                                         resolve_mode)
+from repro_torch.kernels.dispatch import (declare_kernel, report_cost,
+                                         require_no_grad, resolve_mode)
 from repro_torch.shard.local import any_dtensor, reject, run_local
 
 __all__ = ["decode_attention"]
@@ -21,7 +21,8 @@ def decode_attention(q, k, v, pos, *, scale=None, window=None,
     """q [B, H, D]; k, v [B, KH, T, D] ring caches; ``pos`` the scalar write
     position (a Python int or an integer tensor) -> [B, H, D].
 
-    The kernel for CUDA tensors, the plain version for CPU tensors (see
+    The kernel for CUDA tensors, the plain version for CPU tensors, the
+    meta branch for meta tensors (``pos`` a Python int there; see
     ``kernels.dispatch``); DTensor operands run it on each rank's shard of
     batch and heads (``shard.local``).  ``softcap`` caps the scores as the
     JAX model's ``attend`` does (the TPU kernel has none).  ``bk`` is the
@@ -38,9 +39,15 @@ def decode_attention(q, k, v, pos, *, scale=None, window=None,
             [(q, _Q_AXES), (k, _KV_AXES), (v, _KV_AXES)], heads=(1, 1, 1),
             groups=((0, 1), (0, 2)), outputs=((0, 1),))
     plain = lambda: _ref.decode_attention_ref(q, k, v, pos, **kw)
-    if resolve_mode(force, q.device, op="decode_attention") == "ref":
+    mode = resolve_mode(force, q.device, op="decode_attention")
+    if mode == "ref":
         return plain()
     require_no_grad("decode_attention", q, k, v)
+    if mode == "meta":
+        out = _kernel.decode_attention_meta(q, k, v, pos, **kw)
+        report_cost("decode_attention", *_kernel.cost(
+            q, k, v, pos, window=window))
+        return out
     out = _kernel.decode_attention_cuda(q, k, v, pos, **kw)
     declare_kernel("decode_attention", out, plain)
     return out

@@ -17,7 +17,11 @@ the backward (float32 only), counted in
 ``flash_attention_bwd_cuda.launches``: one a call, whose kernels are the
 Δ = rowsum(dO∘O) pre-pass, dK/dV, the fixed-order sum of dK/dV's partials
 over the query group's split and dQ.  :func:`bwd_plan` fixes the split
-from the shapes alone.
+from the shapes alone.  :func:`flash_attention_meta` and
+:func:`flash_attention_bwd_meta` run the same checks on meta tensors and
+return empty outputs (the dry run's branch, ``kernels.dispatch``);
+:func:`cost` and :func:`cost_bwd` count a call's operations and bytes,
+which both ``chip_smoke.py``'s bounds and the dry run read.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from repro_torch.shard.local import reject
 
 __all__ = ["flash_attention_bwd_cuda", "flash_attention_cuda", "launch",
            "launch_bwd", "prepare", "prepare_bwd", "BWD_PHASES", "BwdPlan",
-           "bwd_plan", "FwdPlan", "FWD_TILES", "fwd_plan"]
+           "bwd_plan", "FwdPlan", "FWD_TILES", "fwd_plan", "live_pairs",
+           "cost", "cost_bwd", "flash_attention_meta",
+           "flash_attention_bwd_meta"]
 
 _OP = "flash_attention"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -162,14 +168,9 @@ def _check_mask(op, window):
         raise ValueError(f"{op}: window={window} must be positive")
 
 
-def prepare(q, k, v, *, scale=None, causal=True, window=None,
-            softcap=None, want_lse=False):
-    """Returns ``(args, out, keep)``: the C entry's arguments, the output
-    tensor (``(o, lse)`` with ``want_lse``: lse [B, H, S] float32, float32
-    inputs only) and the inputs ``args`` points into.  A float32 call
-    takes :func:`fwd_plan`'s tiling."""
-    reject("flash_attention", q, k, v)
-    dev = capi.require_cuda(_OP, q)
+def _check_fwd(q, k, v, window, want_lse, dev):
+    """The forward's rules on its inputs (on ``dev``): shapes, dtypes,
+    heads, the mask; the float32 tiling's head dims (:func:`fwd_plan`)."""
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
     capi.check(_OP, "q", q, DTYPES, (b, h, s, d), dev)
@@ -179,9 +180,22 @@ def prepare(q, k, v, *, scale=None, causal=True, window=None,
     _check_mask(_OP, window)
     if want_lse and q.dtype != torch.float32:
         raise TypeError(f"{_OP}: the lse output is float32 only")
+    return None if q.dtype == torch.bfloat16 else fwd_plan(b, h, kh, s, t, d)
+
+
+def prepare(q, k, v, *, scale=None, causal=True, window=None,
+            softcap=None, want_lse=False):
+    """Returns ``(args, out, keep)``: the C entry's arguments, the output
+    tensor (``(o, lse)`` with ``want_lse``: lse [B, H, S] float32, float32
+    inputs only) and the inputs ``args`` points into.  A float32 call
+    takes :func:`fwd_plan`'s tiling."""
+    reject("flash_attention", q, k, v)
+    dev = capi.require_cuda(_OP, q)
+    plan = _check_fwd(q, k, v, window, want_lse, dev)
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else scale
-    bf16 = q.dtype == torch.bfloat16
-    plan = None if bf16 else fwd_plan(b, h, kh, s, t, d, causal, window)
+    bf16 = plan is None
     o = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
            if want_lse else None)
@@ -194,6 +208,52 @@ def prepare(q, k, v, *, scale=None, causal=True, window=None,
               (plan.warps, plan.keys, int(plan.split_q))),
             capi.stream(dev))
     return args, (o if lse is None else (o, lse)), (q, k, v)
+
+
+def flash_attention_meta(q, k, v, *, scale=None, causal=True, window=None,
+                         softcap=None, want_lse=False):
+    """The forward's outputs on the meta device, after :func:`prepare`'s
+    checks: the dry run's stand-in for a launch (nothing is computed or
+    counted in ``launches``)."""
+    reject("flash_attention", q, k, v)
+    dev = capi.require_meta(_OP, q)
+    _check_fwd(q, k, v, window, want_lse, dev)
+    o = torch.empty_like(q)
+    if not want_lse:
+        return o
+    return o, torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+
+
+def live_pairs(s: int, t: int, causal=True, window=None) -> int:
+    """(query, key) pairs that a head's mask keeps: query i sees key j
+    where j <= i (causal) and j > i - window (a window).  The kernels skip
+    the key tiles that hold none of them; the plain version computes all
+    S x T."""
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+    lo = (np.maximum(i - window + 1, 0) if window is not None
+          else np.zeros(s, np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q, k, v, *, causal=True, window=None, want_lse=False):
+    """(operations, bytes) of one forward call: two products of 2·D
+    operations for each live pair (S = Q·Kᵀ and O += P·V; the softmax's
+    few operations a pair not counted), each input read once and O (and
+    the lse) written once."""
+    b, h, s, d = q.shape
+    ops = 4 * d * b * h * live_pairs(s, k.shape[2], causal, window)
+    lse = 4 * b * h * s if want_lse else 0
+    return ops, 2 * capi.nbytes(q) + capi.nbytes(k, v) + lse
+
+
+def cost_bwd(q, k, v, *, causal=True, window=None):
+    """(operations, bytes) of one backward call: five products of 2·D a
+    live pair (S and P again, dV += Pᵀ·dO, dP = dO·Vᵀ, dQ and dK), q, k, v,
+    o, do and the lse read once, dq, dk and dv written once."""
+    b, h, s, d = q.shape
+    ops = 10 * d * b * h * live_pairs(s, k.shape[2], causal, window)
+    return ops, 4 * capi.nbytes(q) + 2 * capi.nbytes(k, v) + 4 * b * h * s
 
 
 def launch(args) -> None:
@@ -217,15 +277,9 @@ def flash_attention_cuda(q, k, v, *, scale=None, causal=True, window=None,
 flash_attention_cuda.launches = 0
 
 
-def prepare_bwd(q, k, v, o, lse, do, *, scale=None, causal=True,
-                window=None, softcap=None):
-    """The backward's ``(args, (dq, dk, dv), keep)``: the C entry's
-    arguments, the gradients (float32, allocated here with the Δ scratch
-    [B, H, S] and, where :func:`bwd_plan` splits the group, the workspace
-    of partial dK and dV [2, n_split, B, KH, T, D]) and the tensors
-    ``args`` points into."""
-    reject("flash_attention_bwd", q, k, v, o, lse, do)
-    dev = capi.require_cuda(_BWD, q)
+def _check_bwd(q, k, v, o, lse, do, window, dev):
+    """The backward's rules on its inputs (on ``dev``): float32, shapes,
+    heads, the mask."""
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
     f32 = torch.float32
@@ -238,6 +292,21 @@ def prepare_bwd(q, k, v, o, lse, do, *, scale=None, causal=True,
         if x.data_ptr() % 16:
             raise ValueError(f"{_BWD}: {name} is not 16-byte aligned")
     _check_mask(_BWD, window)
+
+
+def prepare_bwd(q, k, v, o, lse, do, *, scale=None, causal=True,
+                window=None, softcap=None):
+    """The backward's ``(args, (dq, dk, dv), keep)``: the C entry's
+    arguments, the gradients (float32, allocated here with the Δ scratch
+    [B, H, S] and, where :func:`bwd_plan` splits the group, the workspace
+    of partial dK and dV [2, n_split, B, KH, T, D]) and the tensors
+    ``args`` points into."""
+    reject("flash_attention_bwd", q, k, v, o, lse, do)
+    dev = capi.require_cuda(_BWD, q)
+    _check_bwd(q, k, v, o, lse, do, window, dev)
+    b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
+    f32 = torch.float32
     scale = d ** -0.5 if scale is None else scale
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((b, h, s), dtype=f32, device=dev)
@@ -253,6 +322,16 @@ def prepare_bwd(q, k, v, o, lse, do, *, scale=None, causal=True,
             float(np.float32(0.0 if softcap is None else softcap)),
             capi.stream(dev))
     return args, (dq, dk, dv), (q, k, v, o, lse, do, delta, work)
+
+
+def flash_attention_bwd_meta(q, k, v, o, lse, do, *, scale=None,
+                             causal=True, window=None, softcap=None):
+    """(dq, dk, dv) on the meta device after :func:`prepare_bwd`'s checks:
+    the dry run's stand-in for the backward's launch."""
+    reject("flash_attention_bwd", q, k, v, o, lse, do)
+    dev = capi.require_meta(_BWD, q)
+    _check_bwd(q, k, v, o, lse, do, window, dev)
+    return tuple(torch.empty_like(x) for x in (q, k, v))
 
 
 def launch_bwd(args, phases: int = BWD_ALL) -> None:

@@ -8,8 +8,10 @@ o and the rows' log-sum-exp: on the card its forward is the kernel with
 the ``lse`` output and its backward the backward kernel
 (``csrc/flash_attention_bwd.cu``); on the CPU, or with ``force="ref"``,
 both are the plain versions (``ref.attention_fwd_ref``,
-``ref.attention_bwd_ref``).  Training runs float32: a bfloat16 input that
-requires grad raises.  DTensor operands (a sharded step) run the op on
+``ref.attention_bwd_ref``); on meta tensors (the dry run) both are the
+kernels' meta branches, which check, allocate nothing real and report the
+kernels' work (``kernel.cost``, ``kernel.cost_bwd``).  Training runs
+float32: a bfloat16 input that requires grad raises.  DTensor operands (a sharded step) run the op on
 each rank's shard of batch and heads (``shard.local.run_local``).
 """
 
@@ -17,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
+from repro_torch.kernels.dispatch import (declare_kernel, report_cost,
+                                         resolve_mode)
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 from repro_torch.shard.local import any_dtensor, reject, run_local
@@ -32,7 +35,8 @@ _KV_AXES = ("batch", "act_kv_heads", "act_seq", None)
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose backward is the backward kernel on the card (mode
-    "kernel") or the plain backward (mode "ref")."""
+    "kernel"), the plain backward (mode "ref") or the backward's meta
+    branch (mode "meta")."""
 
     @staticmethod
     def forward(ctx, q, k, v, mode, kw):
@@ -42,6 +46,8 @@ class FlashAttention(torch.autograd.Function):
                                                   **kw)
             declare_kernel("flash_attention", o,
                            lambda: _ref.attention_ref(q, k, v, **kw))
+        elif mode == "meta":
+            o, lse = _meta(q, k, v, kw, want_lse=True)
         else:
             o, lse = _ref.attention_fwd_ref(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -59,18 +65,31 @@ class FlashAttention(torch.autograd.Function):
             grads = _kernel.flash_attention_bwd_cuda(*args, **ctx.kw)
             declare_kernel("flash_attention_bwd", grads,
                            lambda: _ref.attention_bwd_ref(*args, **ctx.kw))
+        elif ctx.mode == "meta":
+            grads = _kernel.flash_attention_bwd_meta(*args, **ctx.kw)
+            report_cost("flash_attention_bwd", *_kernel.cost_bwd(
+                q, k, v, causal=ctx.kw["causal"], window=ctx.kw["window"]))
         else:
             grads = _ref.attention_bwd_ref(*args, **ctx.kw)
         return (*grads, None, None)
+
+
+def _meta(q, k, v, kw, want_lse=False):
+    """The forward's meta branch: its outputs, its work reported."""
+    out = _kernel.flash_attention_meta(q, k, v, want_lse=want_lse, **kw)
+    report_cost("flash_attention", *_kernel.cost(
+        q, k, v, causal=kw["causal"], window=kw["window"],
+        want_lse=want_lse))
+    return out
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
                     softcap=None, bq=128, bk=512, force: str = "auto"):
     """q [B, H, S, D]; k, v [B, KH, T, D] -> [B, H, S, D] in q's dtype.
 
-    The kernel for CUDA tensors, the plain version for CPU tensors (see
-    ``kernels.dispatch``); differentiable through :class:`FlashAttention`
-    (float32 only).  ``bq``/``bk`` are the TPU kernel's tiles, kept for
+    The kernel for CUDA tensors, the plain version for CPU tensors, the
+    meta branch for meta tensors (see ``kernels.dispatch``); differentiable
+    through :class:`FlashAttention` (float32 only).  ``bq``/``bk`` are the TPU kernel's tiles, kept for
     its signature; the CUDA kernel picks its own.
     """
     del bq, bk
@@ -90,6 +109,8 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=None,
     plain = lambda: _ref.attention_ref(q, k, v, **kw)
     if mode == "ref":
         return plain()
+    if mode == "meta":
+        return _meta(q, k, v, kw)
     out = _kernel.flash_attention_cuda(q, k, v, **kw)
     declare_kernel("flash_attention", out, plain)
     return out

@@ -16,6 +16,13 @@ k, q and v are read through their strides, so the views the Mamba2 block
 hands over go in as they are: B and C broadcast over the heads (head
 stride 0) and the head-split slice of the conv output.  Nothing is
 copied but an ``initial_state`` that is not float32 and contiguous.
+
+:func:`ssm_scan_meta` and :func:`ssm_scan_bwd_meta` run the same checks
+on meta tensors and return empty outputs (the dry run's branch,
+``kernels.dispatch``).  :func:`work` and :func:`work_bwd` count a call's
+bytes and its operations by two algorithms, the recurrence and the
+chunked form the kernels run; :func:`cost` and :func:`cost_bwd` give the
+chunked form's.  ``chip_smoke.py``'s bounds and the dry run read them.
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ from repro_torch.shard.local import reject
 
 __all__ = ["BWD_PHASES", "BwdPlan", "PHASES", "Plan", "launch", "launch_bwd",
            "plan", "plan_bwd", "prepare", "prepare_bwd", "smem_bytes",
-           "ssm_scan_bwd_cuda", "ssm_scan_cuda"]
+           "ssm_scan_bwd_cuda", "ssm_scan_cuda", "ssm_scan_meta",
+           "ssm_scan_bwd_meta", "unique_bytes", "work", "work_bwd", "cost",
+           "cost_bwd"]
 
 _OP = "ssm_scan"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -101,7 +110,11 @@ def plan(k, v, q, log_decay, gate, *, chunk: int,
     what the kernels cannot take: an empty input, chunk < 1, more than
     65535 chunks, or a chunk whose cumsum overflows a block's shared
     memory (any N fits: it streams through in slabs)."""
-    dev = capi.require_cuda(_OP, k)
+    return _plan(k, v, q, log_decay, gate, chunk, initial_state,
+                 capi.require_cuda(_OP, k))
+
+
+def _plan(k, v, q, log_decay, gate, chunk, initial_state, dev) -> Plan:
     b, l, h, n = k.shape
     p = v.shape[-1]
     for name, t, dtype, shape in (
@@ -210,6 +223,69 @@ def ssm_scan_cuda(k, v, q, log_decay, gate, *, chunk: int,
 ssm_scan_cuda.launches = 0
 
 
+def ssm_scan_meta(k, v, q, log_decay, gate, *, chunk: int,
+                  initial_state=None, want_states: bool = False):
+    """The outputs of :func:`ssm_scan_cuda` on the meta device after
+    :func:`plan`'s checks: the dry run's stand-in for a launch."""
+    reject("ssm_scan", k, v, q, log_decay, gate, initial_state)
+    dev = capi.require_meta(_OP, k)
+    pl = _plan(k, v, q, log_decay, gate, chunk, initial_state, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.empty((pl.b, pl.l, pl.h, pl.p), **f32)
+    s = torch.empty((pl.b, pl.h, pl.n, pl.p), **f32)
+    if not want_states:
+        return y, s
+    return y, s, torch.empty((pl.b, pl.h, pl.chunks, pl.n, pl.p), **f32)
+
+
+def unique_bytes(t) -> int:
+    """Bytes a tensor holds once, however its strides repeat them (a head
+    stride of 0 reads one row for every head); 0 for None."""
+    if t is None:
+        return 0
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def _chunk_sizes(l: int, chunk: int) -> list:
+    return [min(chunk, l - c0) for c0 in range(0, l, chunk)]
+
+
+def work(k, v, q, log_decay, gate, *, chunk: int, initial_state=None):
+    """(bytes, recurrence operations, chunked operations) of one forward
+    call.  Bytes: the inputs once, y and the state once.  The recurrence,
+    step by step: per row the decay, the outer product and the add over
+    N·P, the gated key and q·S (5·N·P + N), the first row of each (batch,
+    head) without the decay against a zero state.  The chunked form the
+    kernel runs: per causal pair of a chunk the q·k dot, the weight and
+    its share of the value product; per row the update, and the carry
+    after the first chunk or from a given initial state."""
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    nbytes = (sum(unique_bytes(t) for t in (k, v, q, log_decay, gate))
+              + 4 * b * h * p * (l + n))
+    if initial_state is not None:
+        nbytes += 4 * b * h * n * p
+    zero = initial_state is None
+    recurrence = b * h * (l * (5 * n * p + n) - zero * 2 * n * p)
+    sizes = _chunk_sizes(l, chunk)
+    pairs = sum(c * (c + 1) // 2 for c in sizes)
+    chunked = b * h * (pairs * (2 * n + 2 * p + 3) + l * (2 * n * p + 2 * p)
+                       + (l - zero * sizes[0]) * (2 * n * p + p))
+    return nbytes, recurrence, chunked
+
+
+def cost(k, v, q, log_decay, gate, *, chunk: int, initial_state=None):
+    """(operations, bytes) of one forward call in the chunked form the
+    kernels run (:func:`work`)."""
+    nbytes, _, chunked = work(k, v, q, log_decay, gate, chunk=chunk,
+                              initial_state=initial_state)
+    return chunked, nbytes
+
+
 _BWD = "ssm_scan_bwd"
 # The backward's kernels, as bits of launch_bwd's ``phases``, in launch
 # order: the carries start dk/dv's sums and the diagonal pairs' dq
@@ -311,17 +387,10 @@ def _bwd_fn():
                       + [capi.I] * 8 + [capi.P])
 
 
-def prepare_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
-                initial_state=None, states, final_state):
-    """The backward's ``(args, (dk, dv, dq, d_log_decay, d_gate,
-    d_initial_state), keep)``: the C entry's arguments, the gradients
-    (float32, contiguous, allocated here with the scratch and the dq
-    partials' workspace of :func:`plan_bwd`, whose values go to the C
-    entry beside the shapes) and the tensors ``args`` points into.  ``states``
-    and ``final_state`` are the forward's (:func:`ssm_scan_cuda` with
-    ``want_states``); ``initial_state`` only says whether there was one."""
-    reject("ssm_scan_bwd", k, v, q, log_decay, gate, dy, d_final)
-    dev = capi.require_cuda(_BWD, k)
+def _check_bwd(k, v, q, log_decay, gate, dy, d_final, chunk, states,
+               final_state, dev):
+    """The backward's rules on its inputs (on ``dev``) -> (its plan,
+    d_final as float32 contiguous or None)."""
     b, l, h, n = k.shape
     p = v.shape[-1]
     f32 = torch.float32
@@ -337,6 +406,25 @@ def prepare_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
     if d_final is not None:
         d_final = d_final.to(f32).contiguous()
         capi.check(_BWD, "d_final", d_final, f32, (b, h, n, p), dev)
+    return pl, d_final
+
+
+def prepare_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
+                initial_state=None, states, final_state):
+    """The backward's ``(args, (dk, dv, dq, d_log_decay, d_gate,
+    d_initial_state), keep)``: the C entry's arguments, the gradients
+    (float32, contiguous, allocated here with the scratch and the dq
+    partials' workspace of :func:`plan_bwd`, whose values go to the C
+    entry beside the shapes) and the tensors ``args`` points into.  ``states``
+    and ``final_state`` are the forward's (:func:`ssm_scan_cuda` with
+    ``want_states``); ``initial_state`` only says whether there was one."""
+    reject("ssm_scan_bwd", k, v, q, log_decay, gate, dy, d_final)
+    dev = capi.require_cuda(_BWD, k)
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    f32 = torch.float32
+    pl, d_final = _check_bwd(k, v, q, log_decay, gate, dy, d_final, chunk,
+                             states, final_state, dev)
     _bwd_fn()                 # built (or its build error raised) first
     dk, dq = (torch.empty((b, l, h, n), dtype=f32, device=dev)
               for _ in range(2))
@@ -389,3 +477,71 @@ def ssm_scan_bwd_cuda(k, v, q, log_decay, gate, dy, d_final=None, *,
 
 
 ssm_scan_bwd_cuda.launches = 0
+
+
+def ssm_scan_bwd_meta(k, v, q, log_decay, gate, dy, d_final=None, *,
+                      chunk: int, initial_state=None, states, final_state):
+    """The gradients of :func:`ssm_scan_bwd_cuda` on the meta device after
+    :func:`prepare_bwd`'s checks: the dry run's stand-in for a launch."""
+    del initial_state
+    reject("ssm_scan_bwd", k, v, q, log_decay, gate, dy, d_final)
+    dev = capi.require_meta(_BWD, k)
+    _check_bwd(k, v, q, log_decay, gate, dy, d_final, chunk, states,
+               final_state, dev)
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((b, l, h, n), **f32), torch.empty((b, l, h, p), **f32),
+            torch.empty((b, l, h, n), **f32), torch.empty((b, l, h), **f32),
+            torch.empty((b, l, h), **f32), torch.empty((b, h, n, p), **f32))
+
+
+def work_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
+             initial_state=None, states):
+    """(bytes, recurrence operations, chunked operations) of one backward
+    call (each input once, each gradient written once), counted as
+    :func:`work` counts the forward (a multiply-add two).  The recurrence,
+    row by row from the last: S_t again from S_{t-1} (the decay, the gated
+    outer product and the add, 3·N·P + N), its gradient G_t =
+    a_{t+1}·G_{t+1} + q_t dy_tᵀ (3·N·P), dq = S_t dy_t, dk̃ = G_t v_t and
+    dṽ = G_tᵀ k_t (2·N·P each), the gating, dg = k·dk̃ and d cum = q·dq -
+    g·dg and its reverse sum (5·N + P + 3); the first row's S without its
+    decay and add against a zero state, the last row's G without them when
+    there is no dS_final and <S_final, dS_final> when there is.  The
+    chunked form the kernel runs: per causal pair of a chunk the scores
+    dy·v and q·k, the weight exp(cum_i - cum_j) and its products with the
+    scores and the gate, and the three products dq, dk̃, dṽ (6·N + 4·P +
+    5); per row the four state products (ΔG, the carry S_{c-1} dy, G v, Gᵀ
+    k: 8·N·P) and their row scales, the gating, dg, d cum and its sum
+    (8·N + 2·P + 5), the carry skipped in the first chunk against a zero
+    state and G's products in the last without dS_final; per chunk the
+    reverse pass (2·N·P)."""
+    b, l, h, n = k.shape
+    p = v.shape[-1]
+    zero = initial_state is None
+    no_df = d_final is None
+    np_ = n * p
+    recurrence = b * h * (l * (12 * np_ + 5 * n + p + 3)
+                          - zero * 2 * np_ + (1 - 2 * no_df) * 2 * np_)
+    sizes = _chunk_sizes(l, chunk)
+    pairs = sum(c * (c + 1) // 2 for c in sizes)
+    chunked = b * h * (pairs * (6 * n + 4 * p + 5)
+                       + l * (8 * np_ + 8 * n + 2 * p + 5)
+                       - zero * sizes[0] * (2 * np_ + n)
+                       - no_df * sizes[-1] * (4 * np_ + n + p)
+                       + len(sizes) * 2 * np_ + (not no_df) * 2 * np_)
+    ins = (sum(unique_bytes(t) for t in (k, v, q, log_decay, gate, dy,
+                                         states))
+           + 4 * b * h * n * p * (1 + (not no_df)))
+    outs = 4 * b * l * h * (2 * n + p + 2) + 4 * b * h * n * p
+    return ins + outs, recurrence, chunked
+
+
+def cost_bwd(k, v, q, log_decay, gate, dy, d_final=None, *, chunk: int,
+             initial_state=None, states):
+    """(operations, bytes) of one backward call in the chunked form the
+    kernels run (:func:`work_bwd`)."""
+    nbytes, _, chunked = work_bwd(k, v, q, log_decay, gate, dy, d_final,
+                                  chunk=chunk, initial_state=initial_state,
+                                  states=states)
+    return chunked, nbytes

@@ -8,8 +8,10 @@ log_decay, gate, the final state and the states entering each chunk: on
 the card its forward is the kernel (whose scratch holds those states)
 and its backward the backward kernel (``csrc/ssm_scan_bwd.cu``); on the
 CPU, or with ``force="ref"``, both are the plain versions
-(``ref.linear_scan_fwd_ref``, ``ref.linear_scan_bwd_ref``).  Training
-runs float32: a bfloat16 input that requires grad raises.  DTensor
+(``ref.linear_scan_fwd_ref``, ``ref.linear_scan_bwd_ref``); on meta
+tensors (the dry run) both are the kernels' meta branches, which check,
+allocate nothing real and report the kernels' work in their chunked form
+(``kernel.cost``, ``kernel.cost_bwd``).  Training runs float32: a bfloat16 input that requires grad raises.  DTensor
 operands (a sharded step) run the scan on each rank's shard of batch and
 heads (``shard.local.run_local``).
 """
@@ -18,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import declare_kernel, resolve_mode
+from repro_torch.kernels.dispatch import (declare_kernel, report_cost,
+                                         resolve_mode)
 from repro_torch.kernels.ssm_scan import kernel as _kernel
 from repro_torch.kernels.ssm_scan import ref as _ref
 from repro_torch.shard.local import any_dtensor, reject, run_local
@@ -48,6 +51,8 @@ class LinearScan(torch.autograd.Function):
                                                  **kw)
             declare_kernel("ssm_scan", (y, s),
                            lambda: _ref.linear_scan_ref(*args, **kw))
+        elif mode == "meta":
+            y, s, states = _meta(args, kw, want_states=True)
         else:
             y, s, states = _ref.linear_scan_fwd_ref(*args, **kw)
         ctx.save_for_backward(*args, initial_state, states, s)
@@ -67,10 +72,21 @@ class LinearScan(torch.autograd.Function):
             grads = _kernel.ssm_scan_bwd_cuda(*args, **kw)
             declare_kernel("ssm_scan_bwd", grads,
                            lambda: _ref.linear_scan_bwd_ref(*args, **kw))
+        elif ctx.mode == "meta":
+            grads = _kernel.ssm_scan_bwd_meta(*args, **kw)
+            report_cost("ssm_scan_bwd", *_kernel.cost_bwd(
+                *args, chunk=ctx.chunk, initial_state=s0, states=states))
         else:
             grads = _ref.linear_scan_bwd_ref(*args, **kw)
         *grads, d_init = grads
         return (*grads, d_init if s0 is not None else None, None, None)
+
+
+def _meta(args, kw, want_states=False):
+    """The forward's meta branch: its outputs, its work reported."""
+    out = _kernel.ssm_scan_meta(*args, want_states=want_states, **kw)
+    report_cost("ssm_scan", *_kernel.cost(*args, **kw))
+    return out
 
 
 def linear_scan(k, v, q, log_decay, gate, *, chunk: int,
@@ -80,8 +96,9 @@ def linear_scan(k, v, q, log_decay, gate, *, chunk: int,
 
     Any L: the tail is padded to a whole chunk with gate 0 and log-decay 0,
     which leaves the state as it is.  The kernel for CUDA tensors, the
-    plain version for CPU tensors (see ``kernels.dispatch``);
-    differentiable through :class:`LinearScan` (float32 only).
+    plain version for CPU tensors, the meta branch for meta tensors (see
+    ``kernels.dispatch``); differentiable through :class:`LinearScan`
+    (float32 only).
     """
     ins = (k, v, q, log_decay, gate, initial_state)
     if any_dtensor(*ins):
@@ -105,6 +122,8 @@ def linear_scan(k, v, q, log_decay, gate, *, chunk: int,
     plain = lambda: _ref.linear_scan_ref(k, v, q, log_decay, gate, **kw)
     if mode == "ref":
         return plain()
+    if mode == "meta":
+        return _meta((k, v, q, log_decay, gate), kw)
     out = _kernel.ssm_scan_cuda(k, v, q, log_decay, gate, **kw)
     declare_kernel("ssm_scan", out, plain)
     return out

@@ -16,27 +16,37 @@ selections run on the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.autotune --arch mixtral-8x22b \\
       --shape train_4k --mesh single --budget 1000 --slo 1.5 --mock
 
-``--mock`` uses an analytic cost model instead of real profiling.  The
-real evaluator profiles a candidate with the dry-run compile and roofline
-model (``launch/dryrun.py``, ``launch/roofline.py``), which the port does
-not have yet (ROADMAP A12): without ``--mock`` the tuner raises
-``NotImplementedError``.
+``--mock`` uses an analytic cost model instead of real profiling.
+Without it each candidate is profiled by the dry run (``launch/dryrun.py``:
+the step executed on meta tensors over a fake world of the mesh's size,
+its work counted) and priced by its roofline step time against the H100's
+published peaks (``launch/roofline.py``); the dry runs need no card, the
+selections run where ``--device`` says:
+
+  PYTHONPATH=src python -m repro_torch.launch.autotune --arch gemma-2b \
+      --device cpu --out /tmp/at
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
+import subprocess
+import sys
+import tempfile
+import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.core import Settings
 from repro_torch.core.optimizer import optimize_live
 from repro_torch.core.space import DiscreteSpace
 
-__all__ = ["build_space", "decode_point", "real_evaluator", "mock_evaluator",
-           "tune", "main"]
+__all__ = ["build_space", "decode_point", "dry_run", "real_evaluator",
+           "mock_evaluator", "tune", "main"]
 
 PRICE_PER_CHIP_HOUR = 1.2          # $/chip-hour (the reference's ballpark)
 
@@ -75,16 +85,57 @@ def decode_point(space, i, is_moe: bool):
     return flags, rules
 
 
+def dry_run(arch, shape, mesh_kind, flags: dict, rules: dict) -> dict:
+    """The dry run's JSON of one candidate (``launch.dryrun``): in this
+    process when the fake world is up, else in a subprocess of its own
+    (``python -m repro_torch.launch.dryrun``), whose file it reads.
+    Raises with the dry run's last error line if the cell failed."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        from repro_torch.launch import dryrun
+        counts, cfg, meta = dryrun.lower_cell(
+            arch, shape, mesh_kind == "multi", flags, rules)
+        return dryrun.analyze(counts, cfg, meta)
+    src = str(pathlib.Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as out:
+        subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", arch, "--shape", shape, "--mesh",
+                        mesh_kind, "--flags", json.dumps(flags), "--rules",
+                        json.dumps(rules), "--out", out], env=env,
+                       capture_output=True, text=True, timeout=3600)
+        res = json.loads((pathlib.Path(out) /
+                          f"{arch}__{shape}__{mesh_kind}.json").read_text())
+    if "error" in res:
+        raise RuntimeError(res["error"].strip().splitlines()[-1])
+    return res
+
+
 def real_evaluator(arch, shape, mesh_kind, space, is_moe, profile_steps,
                    log=print):
-    """Dry-run compile + roofline step time -> (runtime, full-run cost $).
+    """Dry run + roofline step time -> (runtime, full-run cost $).
 
-    Needs the dry-run launcher and the roofline model, which are not ported
-    yet (ROADMAP A12); raises rather than fall back to the mock model."""
-    raise NotImplementedError(
-        "the real launch-config evaluator needs the dry-run compile and "
-        "roofline model (launch/dryrun.py, launch/roofline.py), which the "
-        "port does not have yet (ROADMAP A12); pass mock=True (--mock)")
+    Returns the *uncapped* cost of profiling the candidate; probe aborts
+    are the optimizer's job (``Settings.timeout`` in ``optimize_live``
+    bills aborted probes pro rata and learns from the censored bound).  A
+    candidate whose dry run raises costs 3600 s a step on 256 chips, as
+    in the reference."""
+
+    def evaluate(i):
+        flags, rules = decode_point(space, i, is_moe)
+        t0 = time.time()
+        try:
+            res = dry_run(arch, shape, mesh_kind, flags, rules)
+            step_s, chips = res["roofline"]["step_s"], res["chips"]
+        except Exception as e:                   # invalid config: huge cost
+            log(f"[tune] cfg {i} failed: {type(e).__name__}: {e}")
+            step_s, chips = 3600.0, 256
+        cost = step_s * profile_steps * chips * PRICE_PER_CHIP_HOUR / 3600.0
+        log(f"[tune] cfg {i} {flags} {rules}: step {step_s:.3f}s "
+            f"probe ${cost:.2f} (dry run {time.time() - t0:.0f}s)")
+        return step_s, cost
+
+    return evaluate
 
 
 def mock_evaluator(space, is_moe, profile_steps, chips=256, seed=0):

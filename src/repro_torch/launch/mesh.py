@@ -25,7 +25,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.device import resolve_device
 
 __all__ = ["make_production_mesh", "make_mesh", "mesh_devices",
-           "ensure_world"]
+           "ensure_world", "production_shape"]
 
 
 def _free_port() -> int:
@@ -70,10 +70,16 @@ def make_mesh(shape, axes, device="cuda"):
     return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
+def production_shape(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh: one pod of 16 x 16, or
+    two."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device)
+    return make_mesh(*production_shape(multi_pod), device)
 
 
 def mesh_devices(mesh) -> int:

@@ -22,8 +22,9 @@ reference's ``donate_argnums``).  ``--mesh DxM`` trains on a
 else as a world of one (NCCL on the card, gloo with ``--device cpu``);
 the state is drawn whole on every rank and distributed by
 ``state_shardings``, each batch placed by ``batch_shardings``, and rank 0
-prints the summary.  A ``--remat`` other than ``none`` raises:
-rematerialisation is ROADMAP A12's next item.  ``--ckpt none`` runs
+prints the summary.  ``--remat none|dots|full`` checkpoints each layer of
+the step (``models.remat``; the gradients are those of ``none``, bit for
+bit, at a lower peak).  ``--ckpt none`` runs
 without checkpoints.  Prints the reference's JSON keys (``final_step``,
 ``preempted``, ``stragglers``, ``final_loss``) and ``step_s`` (the
 median step after the first, which builds the kernels),
@@ -75,10 +76,6 @@ class _NoCheckpoint:
 
 def run(args) -> dict:
     """Train as the parsed ``args`` say; returns the printed summary."""
-    if args.remat != "none":
-        raise NotImplementedError(
-            f"--remat {args.remat}: rematerialisation is not ported yet "
-            "(ROADMAP Queue A, A12)")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     reduced = None
@@ -154,7 +151,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--remat", default="none")
+    ap.add_argument("--remat", default="none",
+                    help="none | dots | full (models.remat)")
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
                                                    "repro_torch_ckpt"),

@@ -166,8 +166,10 @@ class RuntimeFlags:
     comes from the mesh and rules handed to the step factories
     (``train.step``), as in the reference, and ``attn_shard`` and ``zero``
     are not read (the port's attention is the kernel op on each rank's
-    batch and heads, and the moments always follow the parameters);
-    ``remat`` other than "none" waits for ROADMAP A12 item 3.
+    batch and heads, and the moments always follow the parameters).
+    ``remat`` checkpoints the training path's layers (``models.remat``):
+    "full" and "dots" in the transformer families, any value but "none"
+    as "full" in the hybrid and ssm families, as in the reference.
     """
 
     attn_impl: str = "chunked"     # chunked | naive  (naive: tiny tests only)

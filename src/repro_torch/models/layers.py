@@ -16,16 +16,45 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import spec
+from repro_torch.shard.api import constrain_fused, pin_grad
 
 __all__ = ["rmsnorm_spec", "rmsnorm", "layernorm_spec", "layernorm",
            "mlp_specs", "mlp", "rope", "mrope", "embed_specs", "embed",
-           "unembed", "causal_conv1d", "wide"]
+           "unembed", "causal_conv1d", "wide", "project", "project_out"]
 
 
 def wide(x):
     """``x`` in float32, or as it is where it is wider (float64: the
     float64 yardstick of a training step keeps every digit)."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def project(x, w, first_axis):
+    """x [B, S, D] by w [D, *rest] -> [B, S, *rest]: the einsum
+    ``bsd,d...->bs...`` as a matmul over the fused [D, prod(rest)] weight
+    (the same product on the same operands, an ``aten.mm``, which the
+    "dots" rematerialisation saves: ``models.remat``), its fused output
+    placed as ``rest``'s first dim would be (logical axis ``first_axis``;
+    ``shard.constrain_fused``) before it is split, so that a count the
+    mesh axis does not divide (8 KV heads, an sLSTM's 4 gates, on a
+    16-way model axis) stays whole on every rank; the fused weight's
+    gradient comes back on its placements (``shard.pin_grad``) for the
+    same reason.  Off a mesh both are the identity."""
+    d, rest = w.shape[0], tuple(w.shape[1:])
+    y = x @ pin_grad(w.reshape(d, -1))
+    y = constrain_fused(y, ("batch", "act_seq", first_axis), rest[0])
+    return y.unflatten(-1, rest)
+
+
+def project_out(o, w):
+    """o [B, S, *rest] by w [*rest, D] -> [B, S, D]: the einsum
+    ``bs...,...d->bsd`` as a matmul over the fused [prod(rest), D] weight
+    (an ``aten.mm``, as in :func:`project`); both fused operands'
+    gradients come back on their placements (``shard.pin_grad``), so that
+    a head count the mesh axis does not divide is never split across
+    ranks in the backward."""
+    n = o.shape[2:].numel()
+    return pin_grad(o.flatten(2)) @ pin_grad(w.reshape(n, -1))
 
 
 def rmsnorm_spec(d: int, layers: int | None = None):

@@ -43,11 +43,19 @@ def mla_specs(cfg, layers: int):
     }
 
 
+def _up(c, w):
+    """c [B, S, R] by w [R, H, D] -> [B, S, H, D]: the einsum
+    ``bsr,rhd->bshd`` as a matmul over the fused [R, H*D] weight, an
+    ``aten.mm`` like the reference's product without batch dimensions,
+    which the "dots" rematerialisation saves (``models.remat``)."""
+    return (c @ w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
 def _latent(p, x, cfg, positions):
     """The shared down-projections.  Returns (q_nope, q_pe [B, S, H, *],
     c_kv [B, S, R] after ``kv_norm``, k_pe [B, S, 1, rope] roped)."""
     qc = rmsnorm(p["q_norm"], x @ p["q_down"], cfg.norm_eps)
-    q = torch.einsum("bsr,rhd->bshd", qc, p["q_up"])
+    q = _up(qc, p["q_up"])
     q_nope, q_pe = q[..., :cfg.nope_dim], q[..., cfg.nope_dim:]
     q_pe = rope(q_pe, positions, cfg.rope_theta)
     c_kv = rmsnorm(p["kv_norm"], x @ p["kv_down"], cfg.norm_eps)
@@ -63,8 +71,8 @@ def mla_train(p, x, cfg, positions, *, impl="chunked", chunk=1024,
     q_nope, q_pe, c_kv, k_pe = _latent(p, x, cfg, positions)
     if on_cache is not None:
         on_cache({"c_kv": c_kv, "k_pe": k_pe[:, :, 0, :]})
-    k_nope = torch.einsum("bsr,rhd->bshd", c_kv, p["k_up"])
-    v = torch.einsum("bsr,rhd->bshd", c_kv, p["v_up"])
+    k_nope = _up(c_kv, p["k_up"])
+    v = _up(c_kv, p["v_up"])
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(k_nope.shape[:3] + (cfg.rope_dim,))],
                   dim=-1)
@@ -77,7 +85,7 @@ def mla_train(p, x, cfg, positions, *, impl="chunked", chunk=1024,
     o = attn.attend(q, k, v_p, causal=True, scale=qk ** -0.5, impl=impl,
                     chunk=chunk, unroll=unroll)
     o = o[..., :cfg.v_head_dim]
-    return torch.einsum("bshd,hdm->bsm", o, p["out"])
+    return o.flatten(2) @ p["out"].flatten(0, 1)       # bshd,hdm->bsm
 
 
 def mla_cache_shape(cfg, batch: int, cache_len: int):

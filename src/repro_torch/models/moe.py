@@ -64,11 +64,34 @@ def _route(logits, cfg):
     return idx, gates
 
 
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous copy of its
+    gradient.  The expert products' outputs are permuted views of a bmm
+    over the experts; on a mesh their gradients keep that layout on each
+    rank while the DTensor's own strides say contiguous, and the product's
+    backward, a view, fails on them.  The copy changes no value."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clone(memory_format=torch.contiguous_format)
+
+
+def _dense_grad(x):
+    """``x`` through :class:`_DenseGrad` when it is a DTensor; a plain
+    tensor's gradient is already contiguous and goes on uncopied."""
+    return _DenseGrad.apply(x) if any_dtensor(x) else x
+
+
 def _expert_mlp(pe, xe, act):
     """xe [G, E, C, D] through the per-expert MLP weights [E, D, F]."""
-    h = torch.einsum("gecd,edf->gecf", xe, pe["up"])
+    h = _dense_grad(torch.einsum("gecd,edf->gecf", xe, pe["up"]))
     if "gate" in pe:
-        h = h * _act(torch.einsum("gecd,edf->gecf", xe, pe["gate"]), act)
+        h = h * _act(_dense_grad(torch.einsum("gecd,edf->gecf", xe,
+                                              pe["gate"])), act)
     else:
         h = _act(h, act)
     return torch.einsum("gecf,efd->gecd", h, pe["down"])
@@ -128,14 +151,18 @@ def _dispatch(xt, expert_idx, gates, e: int, c: int):
     k = expert_idx.shape[-1]
     n = s_g * k
     flat_e, pos, keep = dispatch_slots(expert_idx, e, c)
-    # Index map (g, e, c) -> source token row; s_g is the zero row.  It is
-    # written from the kept entries only: their slots are distinct and in
-    # range, so the write is deterministic.
+    # Index map (g, e, c) -> source token row; s_g is the zero row.  The
+    # kept entries' slots are distinct and in range, so their writes are
+    # deterministic; a dropped entry writes a spare last slot that is cut
+    # off (a write of every entry: no shape hangs on the data).
     token = torch.arange(n, device=xt.device) // k
     row = (torch.arange(g, device=xt.device)[:, None] * (e * c)
            + flat_e * c + pos)                               # [G, N]
-    src = torch.full((g * e * c,), s_g, dtype=torch.int64, device=xt.device)
-    src[row[keep]] = token.expand(g, n)[keep]
+    row = torch.where(keep, row, g * e * c)
+    src = torch.full((g * e * c + 1,), s_g, dtype=torch.int64,
+                     device=xt.device)
+    src = src.index_put((row.reshape(-1),),
+                        token.expand(g, n).reshape(-1))[:-1]
     x_pad = torch.cat([xt, xt.new_zeros((g, 1, d))], dim=1)
     xe = torch.gather(x_pad, 1, src.view(g, e * c, 1).expand(g, e * c, d))
     # A dropped entry reads a clamped slot and weighs it by 0.

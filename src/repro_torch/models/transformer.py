@@ -33,7 +33,10 @@ returns the full sequence's logits and no cache.
 under autograd, then the chunked cross-entropy (HuBERT's masked-unit form
 for the audio family) plus 0.01 x the MoE router loss.  On the card its
 attention is ``flash_attention``'s forward and backward kernels
-(``kernels.flash_attention.ops.FlashAttention``).
+(``kernels.flash_attention.ops.FlashAttention``).  ``flags.remat``
+checkpoints each layer, or each Gemma2 pair (``_group``), of that path
+(``models.remat``: "full", "dots"; any other value leaves it as it is, as
+the reference's ``_remat`` does); the prefill and decode never do.
 """
 
 from __future__ import annotations
@@ -45,10 +48,11 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
-                                       mrope, rmsnorm, rmsnorm_spec, rope,
-                                       unembed)
+                                       mrope, project, project_out,
+                                       rmsnorm, rmsnorm_spec, rope, unembed)
 from repro_torch.models.losses import chunked_ce_from_hidden, masked_unit_ce
 from repro_torch.models.params import spec
+from repro_torch.models.remat import remat
 from repro_torch.shard.api import constrain, empty as shard_empty
 
 __all__ = ["transformer_specs", "transformer_loss", "transformer_prefill",
@@ -137,9 +141,9 @@ def _attention(p, x, cfg: ModelConfig, positions, window, cache=None,
     returning (out, (k, v)) with k, v [B, S, KH, D] roped.  With ``cache``
     (k, v ring caches [B, T, KH, D]): one token at ``pos``, written into
     the caches in place, returning (out, caches)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = project(x, p["wq"], "act_heads")
+    k = project(x, p["wk"], "act_kv_heads")
+    v = project(x, p["wv"], "act_kv_heads")
     if cfg.mrope_sections:
         q = mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
         k = mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
@@ -160,7 +164,7 @@ def _attention(p, x, cfg: ModelConfig, positions, window, cache=None,
         kv = attn_mod.write_kv(cache[0], cache[1], k, v, pos)
         o = attn_mod.attend(q, *kv, pos=pos, **kw)
     o = constrain(o, ("batch", "act_seq", "act_heads", None))
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), kv
+    return project_out(o, p["wo"]), kv
 
 
 def _ffn(p, x, cfg, flags, moe: bool, want_aux: bool):
@@ -220,30 +224,51 @@ def _embed_inputs(params, cfg: ModelConfig, flags, batch):
     return x, torch.arange(x.shape[1], device=x.device)[None, :]
 
 
-def _forward(params, cfg, flags, batch, on_cache=None, want_aux=False):
+def _group(cfg: ModelConfig) -> int:
+    """Layers a unit of the training path runs: Gemma2's local/global
+    pair with ``alt_window``, else one (the reference's ``_group``)."""
+    return 2 if cfg.alt_window is not None else 1
+
+
+def _forward(params, cfg, flags, batch, on_cache=None, want_aux=False,
+             remat_policy="none"):
     """Embed -> layer stacks -> final norm.  ``on_cache(stack, i, rows)``
-    receives each layer's cache rows.  Returns (hidden, the summed router
-    loss when ``want_aux``, else None)."""
+    receives each layer's cache rows.  Each unit of :func:`_group` layers
+    runs under ``remat_policy`` (``models.remat``; the training path's
+    ``flags.remat``, "none" for the prefill).  Returns (hidden, the summed
+    router loss when ``want_aux``, else None)."""
     x, positions = _embed_inputs(params, cfg, flags, batch)
     x = constrain(x, ("batch", "act_seq", None))
     total = None
+    g = _group(cfg)
     for name, moe, n in _stacks(cfg):
-        for i, layer in enumerate(_unstack(params[name])):
-            keep = (None if on_cache is None else
-                    lambda rows, name=name, i=i: on_cache(name, i, rows))
-            x, aux = _block(layer, x, cfg, flags, positions,
-                            cfg.layer_window(i), moe, on_cache=keep,
-                            want_aux=want_aux)
-            if aux is not None:
+        layers = _unstack(params[name])
+        for i0 in range(0, n, g):
+            def body(x, unit, i0=i0, name=name, moe=moe):
+                auxes = []
+                for i, layer in enumerate(unit, i0):
+                    keep = (None if on_cache is None else
+                            lambda rows, i=i: on_cache(name, i, rows))
+                    x, aux = _block(layer, x, cfg, flags, positions,
+                                    cfg.layer_window(i), moe, on_cache=keep,
+                                    want_aux=want_aux)
+                    if aux is not None:
+                        auxes.append(aux)
+                return x, tuple(auxes)
+
+            x, auxes = remat(body, remat_policy)(x, layers[i0:i0 + g])
+            for aux in auxes:
                 total = aux if total is None else total + aux
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), total
 
 
 def hidden_forward(params, cfg: ModelConfig, flags, batch):
-    """Embed -> layer stacks -> final norm.  Returns (hidden, aux): aux is
+    """Embed -> layer stacks -> final norm, each unit of layers
+    rematerialised as ``flags.remat`` says.  Returns (hidden, aux): aux is
     the MoE layers' summed router loss (``moe.router_aux_loss``), 0 for a
     config without experts."""
-    hidden, aux = _forward(params, cfg, flags, batch, want_aux=True)
+    hidden, aux = _forward(params, cfg, flags, batch, want_aux=True,
+                           remat_policy=flags.remat)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     return hidden, aux

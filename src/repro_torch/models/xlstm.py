@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (causal_conv1d, mlp, mlp_specs,
-                                       rmsnorm, rmsnorm_spec, wide)
+                                       project, rmsnorm, rmsnorm_spec, wide)
 from repro_torch.models.params import spec
 from repro_torch.models.ssm import chunked_linear_scan
 from repro_torch.shard.local import elementwise
@@ -170,7 +170,8 @@ def _slstm_cell(p, pre_t, hcnm):
     float32.  On the first step m = -inf: m_new = it is finite and
     exp(ft + m - m_new) = exp(-inf) = 0."""
     h, c, n, m = hcnm
-    rec = torch.einsum("bkd,gkde->bgke", h, p["r"])  # [B,4,nh,hd]
+    # h is float32; a bfloat16 r is promoted to it, as jnp.einsum does.
+    rec = torch.einsum("bkd,gkde->bgke", h, p["r"].to(h.dtype))  # [B,4,nh,hd]
     zt, it, ft, ot = torch.unbind(wide(pre_t + rec + p["b"]), dim=1)
     z = torch.tanh(zt)
     o = torch.sigmoid(ot)
@@ -195,7 +196,7 @@ def slstm_block(p, x, cfg, state=None):
     b, l, d = x.shape
     nh, hd = _sdims(cfg)
     xin = rmsnorm(p["norm"], x, cfg.norm_eps)
-    pre = torch.einsum("bld,dgke->blgke", xin, p["w_in"])  # [B,L,4,nh,hd]
+    pre = project(xin, p["w_in"], None)              # [B,L,4,nh,hd]
     if state is None:
         dt = torch.promote_types(x.dtype, torch.float32)
         zero = torch.zeros((b, nh, hd), dtype=dt, device=x.device)
@@ -217,7 +218,7 @@ def slstm_state_shapes(cfg, batch: int):
 def slstm_decode(p, x, cfg, state):
     b, _, d = x.shape
     xin = rmsnorm(p["norm"], x, cfg.norm_eps)
-    pre = torch.einsum("bld,dgke->blgke", xin, p["w_in"])[:, 0]
+    pre = project(xin, p["w_in"], None)[:, 0]
     state = _slstm_cell(p, pre, state)
     y = state[0].reshape(b, 1, d).to(x.dtype)
     return _slstm_out(p, x, cfg, y), state

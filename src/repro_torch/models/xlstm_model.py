@@ -9,7 +9,8 @@ reference's training loss over the same forward (``_forward``) as
 ``xlstm_prefill``: the mLSTM blocks' gradients come from ``ssm_scan``'s
 backward kernel on the card (its plain backward on the CPU), the sLSTM's
 loop over time trains through plain autograd (no TPU kernel computes
-it).  Rematerialisation (``flags.remat``) is not ported yet.
+it).  ``flags.remat`` checkpoints each block of the training path
+(``models.remat``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embed_specs, rmsnorm,
                                        rmsnorm_spec, unembed)
 from repro_torch.models.losses import chunked_ce_from_hidden
+from repro_torch.models.remat import remat
 from repro_torch.models.xlstm import (mlstm_block, mlstm_decode, mlstm_specs,
                                       mlstm_state_shapes, slstm_block,
                                       slstm_decode, slstm_specs,
@@ -67,15 +69,19 @@ def xlstm_cache_axes(cfg: ModelConfig):
     return out
 
 
-def _forward(params, cfg, flags, batch, states=None):
+def _forward(params, cfg, flags, batch, states=None, remat_policy="none"):
     """The blocks in order over the whole sequence -> (final-normed hidden
     [B, S, D], every block's final state).  ``states`` (one entry a block,
-    as ``xlstm_cache_shapes``) start the blocks; None starts them empty."""
+    as ``xlstm_cache_shapes``) start the blocks; None starts them empty.
+    Under a ``remat_policy`` other than "none" (the training path's
+    ``flags.remat``) each block is checkpointed whole (``models.remat``,
+    "full", as the reference's ``jax.checkpoint`` of each block)."""
     x = constrain(_embed(params, cfg, flags, batch["tokens"]),
                   ("batch", "act_seq", None))
+    policy = "full" if remat_policy != "none" else "none"
     new_states = []
     for i, (kind, p) in enumerate(zip(block_kinds(cfg), params["blocks"])):
-        fn = mlstm_block if kind == "mlstm" else slstm_block
+        fn = remat(mlstm_block if kind == "mlstm" else slstm_block, policy)
         x, st = fn(p, x, cfg, None if states is None else states[i])
         new_states.append(st)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), new_states
@@ -84,14 +90,10 @@ def _forward(params, cfg, flags, batch, states=None):
 def xlstm_loss(params, cfg, flags, batch, aux_weight: float = 0.0):
     """(token-mean CE, {"ce"}) of the next-token targets, in
     ``flags.loss_chunks`` chunks; ``aux_weight`` is the reference's and
-    unused.  ``flags.remat`` other than "none" raises (ROADMAP A12's third
-    item)."""
+    unused.  ``flags.remat`` other than "none" checkpoints each block
+    (``_forward``)."""
     del aux_weight
-    if flags.remat != "none":
-        raise NotImplementedError(
-            f"remat={flags.remat!r}: rematerialisation is not ported yet "
-            "(ROADMAP Queue A, A12)")
-    hidden, _ = _forward(params, cfg, flags, batch)
+    hidden, _ = _forward(params, cfg, flags, batch, remat_policy=flags.remat)
     loss = chunked_ce_from_hidden(params["embed"], hidden, batch["targets"],
                                   batch.get("loss_mask"),
                                   n_chunks=flags.loss_chunks)

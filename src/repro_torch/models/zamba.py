@@ -27,9 +27,11 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embed_specs, mlp, mlp_specs,
-                                       rmsnorm, rmsnorm_spec, rope, unembed)
+                                       project, project_out, rmsnorm,
+                                       rmsnorm_spec, rope, unembed)
 from repro_torch.models.losses import chunked_ce_from_hidden
 from repro_torch.models.params import spec
+from repro_torch.models.remat import remat
 from repro_torch.models.ssm import (mamba2_block, mamba2_decode,
                                     mamba2_specs, mamba2_state_shapes)
 from repro_torch.shard.api import constrain
@@ -74,9 +76,9 @@ def _shared_attn(p, x, cfg, positions, cache=None, pos=None):
     ``cache`` (dict k, v): one token at ``pos``, written into the ring
     cache in place, which is returned."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+    q = project(h, p["wq"], "act_heads")
+    k = project(h, p["wk"], "act_kv_heads")
+    v = project(h, p["wv"], "act_kv_heads")
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     q = constrain(q, ("batch", "act_seq", "act_heads", None))
@@ -88,28 +90,49 @@ def _shared_attn(p, x, cfg, positions, cache=None, pos=None):
         o = attn_mod.attend(q, ck, cv, causal=True, window=cfg.window,
                             pos=pos)
         new_c = (ck, cv)
-    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    x = x + project_out(o, p["wo"])
     x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
     return x, new_c
 
 
-def _forward(params, cfg, flags, batch):
+def _unit(params, x, cfg, positions, lo, hi, shared):
+    """Mamba2 blocks ``lo``..``hi``-1, then the shared block when
+    ``shared`` -> (x, each block's state dict (conv, ssm), the site's
+    (k, v) [B, S, KH, D] or None)."""
+    states = []
+    for i in range(lo, hi):
+        y, st = mamba2_block(_layer(params, i), x, cfg)
+        x = x + y
+        states.append(st)
+    kv = None
+    if shared:
+        x, kv = _shared_attn(params["shared"], x, cfg, positions)
+    return x, states, kv
+
+
+def _forward(params, cfg, flags, batch, remat_policy="none"):
     """The parallel forward -> (final-normed hidden [B, S, D], each
     layer's Mamba2 state dict (conv, ssm), each site's (k, v) [B, S, KH,
     D]): each group of ``attn_every`` Mamba2 blocks followed by the shared
-    block, then the tail blocks."""
+    block, then the tail blocks.  Under a ``remat_policy`` other than
+    "none" (the training path's ``flags.remat``) each group and each tail
+    block is checkpointed whole (``models.remat``, "full", as the
+    reference's ``jax.checkpoint`` of ``group`` and ``tail_block``)."""
     dt = getattr(torch, flags.compute_dtype)
     x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale,
               d=cfg.d_model).to(dt)
     x = constrain(x, ("batch", "act_seq", None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    n_sites, _ = _sites(cfg)
+    k = cfg.attn_every
+    units = ([(s * k, (s + 1) * k, True) for s in range(n_sites)]
+             + [(i, i + 1, False) for i in range(n_sites * k, cfg.n_layers)])
+    run = remat(_unit, "full" if remat_policy != "none" else "none")
     states, kvs = [], []
-    for i in range(cfg.n_layers):
-        y, st = mamba2_block(_layer(params, i), x, cfg)
-        x = x + y
-        states.append(st)
-        if (i + 1) % cfg.attn_every == 0:        # the end of a group
-            x, kv = _shared_attn(params["shared"], x, cfg, positions)
+    for lo, hi, shared in units:
+        x, st, kv = run(params, x, cfg, positions, lo, hi, shared)
+        states += st
+        if kv is not None:
             kvs.append(kv)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), states, kvs
 
@@ -117,14 +140,11 @@ def _forward(params, cfg, flags, batch):
 def zamba_loss(params, cfg, flags, batch, aux_weight: float = 0.0):
     """(token-mean CE, {"ce"}) of the next-token targets, in
     ``flags.loss_chunks`` chunks; ``aux_weight`` is the reference's and
-    unused (no router).  ``flags.remat`` other than "none" raises
-    (rematerialisation is ROADMAP A12's third item)."""
+    unused (no router).  ``flags.remat`` other than "none" checkpoints each
+    group and tail block (``_forward``)."""
     del aux_weight
-    if flags.remat != "none":
-        raise NotImplementedError(
-            f"remat={flags.remat!r}: rematerialisation is not ported yet "
-            "(ROADMAP Queue A, A12)")
-    hidden, _, _ = _forward(params, cfg, flags, batch)
+    hidden, _, _ = _forward(params, cfg, flags, batch,
+                            remat_policy=flags.remat)
     loss = chunked_ce_from_hidden(params["embed"], hidden, batch["targets"],
                                   batch.get("loss_mask"),
                                   n_chunks=flags.loss_chunks)

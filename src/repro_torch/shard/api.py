@@ -40,12 +40,12 @@ import numpy as np
 import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
-from torch.distributed.tensor import empty as dtensor_empty
 
 __all__ = ["BASE_RULES", "make_rules", "pspec_for", "sharding_for",
            "activation_ctx", "constrain", "mesh_axis_size", "axis_sizes",
            "placements_for", "local_slices", "contiguous_stride",
-           "NamedSharding", "current_ctx", "empty"]
+           "NamedSharding", "current_ctx", "empty", "constrain_fused",
+           "pin_grad"]
 
 # Default rule table: TP on 'model', DP/FSDP on ('pod', 'data').
 BASE_RULES: dict[str, object] = {
@@ -221,17 +221,21 @@ def current_ctx():
 
 
 def empty(shape, logical_axes, dtype, device):
-    """An uninitialised tensor of ``shape``; under a context a DTensor on
-    the spec of ``logical_axes`` (each rank allocating its shard), else a
-    plain tensor on ``device``."""
+    """An uninitialised tensor of ``shape`` on ``device``; under a context
+    a DTensor on the spec of ``logical_axes``, each rank allocating its
+    shard on ``device`` (the mesh's device type, or ``meta`` in the dry
+    run)."""
     ctx = _CTX.get()
     if ctx is None:
         return torch.empty(shape, dtype=dtype, device=device)
     mesh, rules = ctx
     placements = placements_for(pspec_for(shape, logical_axes, rules, mesh),
                                 mesh.mesh_dim_names)
-    return dtensor_empty(tuple(shape), dtype=dtype, device_mesh=mesh,
-                         placements=placements)
+    local = [sl.stop - sl.start
+             for sl in local_slices(shape, mesh, placements)]
+    return DTensor.from_local(torch.empty(local, dtype=dtype, device=device),
+                              mesh, placements, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def constrain(x, logical_axes):
@@ -247,3 +251,31 @@ def constrain(x, logical_axes):
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(mesh, placements)
+
+
+def constrain_fused(x, logical_axes, groups: int):
+    """:func:`constrain` for a DTensor whose last dim fuses ``groups``
+    equal parts (heads x head_dim): that dim is placed as a dim of
+    ``groups`` would be, so that it splits into (groups, rest) evenly on
+    every rank.  A projection onto 8 KV heads on a 16-way model axis thus
+    gathers its fused output rather than leave it split inside a head."""
+    ctx = _CTX.get()
+    if ctx is None or not isinstance(x, DTensor):
+        return x
+    mesh, rules = ctx
+    shape = tuple(x.shape[:-1]) + (groups,)
+    placements = placements_for(pspec_for(shape, logical_axes, rules, mesh),
+                                mesh.mesh_dim_names)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def pin_grad(x):
+    """``x`` itself; a DTensor's gradient comes back on ``x``'s placements
+    (a redistribution onto its own placements, whose backward places the
+    gradient there).  A fused view of a weight thus returns its gradient
+    in a layout that the view's backward can split."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)

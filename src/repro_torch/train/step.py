@@ -226,6 +226,14 @@ def make_train_step(model, flags, opt_cfg: AdamWConfig, mesh=None,
     return train_step
 
 
+def _greedy(logits):
+    """The argmax token of each row.  On a mesh the vocab is gathered
+    first and the argmax taken on each rank's rows: DTensor's own
+    distributed argmax fails on a 2-D mesh that holds one row a rank."""
+    logits = constrain(logits, ("batch",) + (None,) * (logits.ndim - 1))
+    return torch.argmax(logits, dim=-1)
+
+
 def make_serve_step(model, flags, mesh=None, rules=None):
     """Returns (prefill_fn, decode_fn), both greedy.
 
@@ -242,12 +250,12 @@ def make_serve_step(model, flags, mesh=None, rules=None):
     def prefill(params, batch, cache_len):
         with mesh_context(mesh, rules):
             logits, caches = model.prefill(params, batch, flags, cache_len)
-            return torch.argmax(logits, dim=-1), caches
+            return _greedy(logits), caches
 
     def decode(params, caches, tokens, pos):
         with mesh_context(mesh, rules):
             logits, new_caches = model.decode(params, caches, tokens, pos,
                                               flags)
-            return torch.argmax(logits, dim=-1), new_caches
+            return _greedy(logits), new_caches
 
     return prefill, decode

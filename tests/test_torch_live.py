@@ -117,9 +117,21 @@ def test_tune_without_out_dir_writes_nothing(tmp_path, monkeypatch):
 
 
 def test_real_evaluator_raises_until_the_dry_run_is_ported():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tat.tune("mixtral-8x22b", "train_4k", "single", budget=400.0,
-                 slo=1.5, mock=False, out_dir=None, device="cpu")
+    """The real evaluator returns a probe: one candidate's dry run (a
+    subprocess on a fake world of 256) priced by its roofline step time;
+    a candidate whose dry run fails bills 3600 s on 256 chips."""
+    space = tat.build_space(False)
+    logs = []
+    step_s, cost = tat.real_evaluator("gemma-2b", "decode_32k", "single",
+                                      space, False, 100, log=logs.append)(0)
+    assert 0 < step_s < 3600.0 and np.isfinite(step_s)
+    assert cost == pytest.approx(step_s * 100 * 256 * tat.PRICE_PER_CHIP_HOUR
+                                 / 3600.0)
+    assert "failed" not in logs[0]
+    bad = tat.real_evaluator("no-such-arch", "decode_32k", "single", space,
+                             False, 100, log=logs.append)(0)
+    assert bad == (3600.0, 3600.0 * 100 * 256 * tat.PRICE_PER_CHIP_HOUR
+                   / 3600.0)
 
 
 def test_live_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -196,8 +196,8 @@ def test_golden_file_is_fresh_and_the_port_reproduces_it(jax_runs):
 def test_launcher_runs_on_cpu_and_refuses_what_is_not_ported(tmp_path,
                                                               capsys):
     """``launch.train`` trains gemma-2b-smoke on the CPU, checkpoints and
-    resumes; ``--mesh 1x1`` trains as a world of one (gloo) to the same
-    loss, bit for bit; ``--remat`` raises."""
+    resumes; ``--mesh 1x1`` trains as a world of one (gloo) and ``--remat
+    full`` rematerialised, each to the same loss, bit for bit."""
     from repro_torch.launch import train
     argv = ["--arch", "gemma-2b", "--smoke", "--steps", "4", "--batch", "2",
             "--seq", "16", "--microbatches", "2", "--device", "cpu",
@@ -209,11 +209,12 @@ def test_launcher_runs_on_cpu_and_refuses_what_is_not_ported(tmp_path,
     assert sorted(p.name for p in tmp_path.iterdir())[-1] == "step_00000004"
     train.main(argv[:4] + ["6"] + argv[5:])            # resumes at 4
     assert "[resume] restored checkpoint at step 4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(argv + ["--remat", "full"])
     plain = argv[:-4] + ["--ckpt", "none"]
     train.main(plain)
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    train.main(plain + ["--remat", "full"])
+    remat = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert remat["final_loss"] == want["final_loss"]
     train.main(plain + ["--mesh", "1x1"])
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert got["mesh"] == "1x1" and want["mesh"] is None

@@ -10,6 +10,7 @@ One world of 4 spawned gloo ranks runs every setting of the file:
   from one numpy state, at the tolerances of ``tests/test_torch_train.py``
   (loss and gradient norm rtol 2e-6, parameters atol 5e-5, moments 1e-7;
   an int8 code that rounds to the other side of a half quantum as there);
+* (2, 2) as above under ``remat="full"``: bitwise the run without;
 * (1, 1) on each rank alone: bitwise the unsharded step.
 
 Rank 0 writes full tensors (``train.step.full``) for the parent to
@@ -32,11 +33,11 @@ SETTINGS = [("2x2-mb2-int8", (2, 2), 2, True), ("4x1", (4, 1), 1, False)]
 METRIC_RTOL = 2e-6
 
 
-def _flags(mb, compress):
+def _flags(mb, compress, remat="none"):
     from repro_torch.models import RuntimeFlags
     return RuntimeFlags(attn_impl="naive", loss_chunks=META["loss_chunks"],
                         compute_dtype="float32", microbatches=mb,
-                        grad_compress=compress)
+                        grad_compress=compress, remat=remat)
 
 
 def _numpy_state(specs, compress):
@@ -47,7 +48,7 @@ def _numpy_state(specs, compress):
     return w, zeros, (zeros if compress else ())
 
 
-def _setup(mesh, mb, compress, arch=META["arch"]):
+def _setup(mesh, mb, compress, arch=META["arch"], remat="none"):
     """(model, flags, sharded state, sharded data, step) on ``mesh``."""
     from repro_torch import convert
     from repro_torch.configs import get_smoke_config
@@ -57,7 +58,7 @@ def _setup(mesh, mb, compress, arch=META["arch"]):
     from repro_torch.shard import make_rules
     from repro_torch.train import step as st
     model = build_model(get_smoke_config(arch))
-    flags = _flags(mb, compress)
+    flags = _flags(mb, compress, remat)
     rules = make_rules()
     w, zeros, res = _numpy_state(model.specs(), compress)
     state = st.distribute(
@@ -74,11 +75,11 @@ def _setup(mesh, mb, compress, arch=META["arch"]):
     return model, flags, state, data, step
 
 
-def _trajectory(mesh, mb, compress, arch=META["arch"]):
+def _trajectory(mesh, mb, compress, arch=META["arch"], remat="none"):
     """3 steps: (per-step loss, grad norm, lr; the final state as full
     tensors; the final sharded state)."""
     from repro_torch.train.step import full
-    _, _, state, data, step = _setup(mesh, mb, compress, arch)
+    _, _, state, data, step = _setup(mesh, mb, compress, arch, remat)
     out = {"loss": [], "grad_norm": [], "lr": []}
     for i in range(META["steps"]):
         state, metrics = step(state, data(i))
@@ -153,6 +154,8 @@ def _world(rank, out):
     mesh41 = make_mesh((4, 1), ("data", "model"), device="cpu")
     res["2x2-mb2-int8"] = _trajectory(mesh22, 2, True)[:2]
     res["2x2-mb2-int8 again"] = _trajectory(mesh22, 2, True)[:2]
+    res["2x2-mb2-int8 remat"] = _trajectory(mesh22, 2, True,
+                                            remat="full")[:2]
     res["4x1"] = _trajectory(mesh41, 1, False)[:2]
     one = _trajectory(single_rank_mesh(), 2, True)[:2]
     if rank == 0:
@@ -280,6 +283,15 @@ def test_two_runs_of_one_mesh_are_bitwise_equal(world):
     got, state = world[0]["2x2-mb2-int8"]
     again, state2 = world[0]["2x2-mb2-int8 again"]
     assert got == again and _bitwise(state, state2)
+
+
+def test_remat_full_on_the_mesh_is_bitwise_the_step_without(world):
+    """``remat="full"`` on (2, 2): the layers' recomputation runs in the
+    backward under the step's activation rules, and the trajectory is
+    bitwise the one without remat (so held to JAX's sharded step too)."""
+    got, state = world[0]["2x2-mb2-int8 remat"]
+    want, state0 = world[0]["2x2-mb2-int8"]
+    assert got == want and _bitwise(state, state0)
 
 
 def test_mesh_of_one_is_bitwise_the_unsharded_step(world):

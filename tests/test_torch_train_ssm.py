@@ -26,6 +26,7 @@ path reproduces it within ``chip_smoke.GOLDEN_TRAIN_SSM_TOL``.  Regenerate it
 with ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_train_ssm.py``.
 """
 
+import dataclasses
 import json
 import pathlib
 import sys
@@ -45,6 +46,7 @@ from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.models import RuntimeFlags as JaxFlags  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.configs import ARCHS as ARCHS_ALL  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.models import RuntimeFlags, build_model  # noqa: E402
@@ -158,11 +160,18 @@ def test_float64_witness_keeps_float64():
 
 
 def test_loss_refuses_remat():
-    for arch in ARCHS:
-        model = build_model(get_smoke_config(arch))
-        with pytest.raises(NotImplementedError, match="remat"):
-            model.loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                       RuntimeFlags(remat="full"))
+    """Every arch's smoke loss under ``remat="full"`` equals its "none"
+    loss (the checkpointed layers compute the same forward)."""
+    for arch in ARCHS_ALL:
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg)
+        params = convert.tree_from_numpy(
+            convert.numpy_params(model.specs(), 1), "cpu")
+        batch = convert.tree_from_numpy(
+            make_batch(cfg, "train", 2, 16, seed=1, step=0), "cpu")
+        losses = [model.loss(params, batch, dataclasses.replace(
+            FLAGS, remat=remat))[0] for remat in ("none", "full")]
+        assert torch.equal(*losses), arch
 
 
 def _jax_golden(arch):
